@@ -1,0 +1,42 @@
+"""Particle advection (RK3, Ralston), port of fluidsimulation_tpu/ops/advect.py.
+
+Stage offsets 0.5*dt and 0.75*dt and weights (2/9, 3/9, 4/9)
+(Simulation3D.cpp:211-221); the final position is clamped to
+[-0.4/m, 1-0.6/m] (gpAdvect.hlsl:65-67). Scalars are float32, as in the
+JAX package's jitted step.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.config import SimConfig
+from ..core.interp import interp_mac3_vec
+from .common import cell_scale
+
+
+def _rk3(cfg: SimConfig, u, v, w, k1, pos, dt):
+    dt = np.float32(dt)
+    m = cell_scale(cfg, pos.device)
+
+    def vel_at(p):
+        return interp_mac3_vec(u, v, w, p * m)
+
+    if k1 is None:
+        k1 = vel_at(pos)
+    k2 = vel_at(pos + 0.5 * dt * k1)
+    k3 = vel_at(pos + 0.75 * dt * k2)
+    newpos = pos + dt * ((2.0 / 9.0) * k1 + (3.0 / 9.0) * k2 + (4.0 / 9.0) * k3)
+    return torch.clamp(newpos, -0.4 / m, 1.0 - 0.6 / m)
+
+
+def advect_rk3(cfg: SimConfig, u, v, w, pos, dt):
+    """Advect pos through the MAC grids (u, v, w) by dt."""
+    return _rk3(cfg, u, v, w, None, pos, dt)
+
+
+def advect_rk3_cached(cfg: SimConfig, u, v, w, k1, pos, dt):
+    """advect_rk3 with stage 1 given: k1 is the grid velocity at pos that
+    the previous step's FLIP update computed from these same grids."""
+    return _rk3(cfg, u, v, w, k1, pos, dt)
