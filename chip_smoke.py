@@ -5,31 +5,46 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the four hand-written CUDA kernels from csrc/, compares each with
-its plain PyTorch version on the card, drives the port's 3D step on the
-128^3 dam break (1,000,188 particles, dt = 1/60) through ``step``, checks
-that every step went through the kernels, and compares a 32^3 step on the
-card with the same step on the CPU. Any failure raises, and then the last
-line is not printed. Without a CUDA card it exits non-zero at once.
+It builds the five hand-written CUDA kernels from csrc/, compares each with
+its plain PyTorch version on the card, and drives three paths of the port,
+each with the launch counts set to 0 just before it and read just after:
+
+  * the 128^3 dam break (1,000,188 particles, ppc 1, dt = 1/60) through
+    ``step``, 20 steps;
+  * the demo entry point at its defaults, ``app.demo.main``: 64^3, ppc 2,
+    953,312 particles, 60 steps at rate 0.5, saving its final state;
+  * the physical configuration of bench.py: 128^3, ppc 2, 8,001,504
+    particles, dt = 1/120, 10 steps.
+
+Every step of every path must launch each kernel the expected number of
+times. A 32^3 card step is compared with the same step on the CPU. Any
+failure raises, and then the last line is not printed. Without a CUDA card
+it exits non-zero at once.
 
 Phases, each printing before the next:
   0  card name and power limit; TF32 off
   1  kernel build (seconds)
-  2  kernels vs plain versions at 32^3 (here) and at 128^3 (after phase 3),
-     on the inputs each kernel received in a step of the main path
+  2  kernels vs plain versions at 32^3 (here), at 128^3 (after phase 3) and
+     at 64^3/ppc 2 (after phase 5), on the inputs each kernel received in a
+     step of the path
   3  20 steps at 128^3; launch counts per step; median step time
   4  the 32^3 card step of phase 2 vs the same step on the CPU
-  5  {"kernels": [...]} and then {"ok": true, "device": {...}}
+  5  the demo at its defaults; launches per step; checkpoint reload
+  6  10 steps of 128^3 / ppc 2; median step time, peak device memory
+  7  {"kernels": [...]} and then {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 
@@ -40,6 +55,18 @@ DEVICE = "cuda:0"
 MAIN_N = 128  # grid cells per axis of the main path
 MAIN_PARTICLES = 1_000_188
 SMALL_N = 32
+DEMO_STEPS = 60  # the demo's defaults: 64^3, ppc 2, rate 0.5
+DEMO_PARTICLES = 953_312
+PHYS_N = 128
+PHYS_PARTICLES = 8_001_504
+PHYS_DT = 1.0 / 120.0
+PHYS_STEPS = 10
+FIELDS = ("pos", "vel", "u", "v", "w", "phi")
+
+# H100 SXM data-sheet peaks at 700 W: device memory rate, and float32
+# outside the tensor cores (every kernel here is float32 arithmetic).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 
 
 def say(msg: str) -> None:
@@ -72,12 +99,13 @@ def cuda_ms(fn, reps: int) -> float:
 @contextlib.contextmanager
 def capture(store: dict):
     """Record the arguments the step passes to each kernel wrapper."""
-    from fluidsimulation_tpu_torch.ops import flip, levelset, p2g
+    from fluidsimulation_tpu_torch.ops import flip, levelset, p2g, project
 
     sites = [
         (levelset, "neighborhood_pass", "seed"),
         (levelset, "sweep_closest", "sweep"),
         (p2g, "p2g_accumulate", "p2g"),
+        (project, "sor_pressure", "sor"),
         (flip, "g2p_flip", "g2p"),
     ]
     saved = []
@@ -98,39 +126,135 @@ def capture(store: dict):
 
 
 def kernel_table():
-    from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sweep
+    """One entry per line of the kernels report. ``site`` names the capture
+    key whose arguments the entry's wrapper takes."""
+    from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep
+
+    def p2g_plain(cfg, pcs, vels, start):
+        return cuda_p2g.p2g_accumulate_plain(cfg, pcs, vels)
 
     return {
         "seed": dict(
             module=cuda_seed, wrapper=cuda_seed.neighborhood_pass,
-            plain=cuda_seed.neighborhood_pass_plain,
+            plain=cuda_seed.neighborhood_pass_plain, site="seed",
             name="neighborhood_pass", source="fluidsimulation_tpu_torch/csrc/seed.cu",
-            replaces="fluidsimulation_tpu/ops/pallas_seed.py:22", per_step=1,
+            replaces="fluidsimulation_tpu/ops/pallas_seed.py:22",
         ),
         "sweep": dict(
             module=cuda_sweep, wrapper=cuda_sweep.sweep_closest,
-            plain=cuda_sweep.sweep_closest_plain,
+            plain=cuda_sweep.sweep_closest_plain, site="sweep",
             name="sweep_closest", source="fluidsimulation_tpu_torch/csrc/sweep.cu",
             replaces="fluidsimulation_tpu/ops/pallas_sweep.py:30",
-            per_step=len(cuda_sweep.SWEEP_ORDER),
         ),
         "p2g": dict(
-            module=cuda_p2g, wrapper=cuda_p2g.p2g_accumulate,
-            plain=lambda cfg, pcs, vels, start: cuda_p2g.p2g_accumulate_plain(cfg, pcs, vels),
+            module=cuda_p2g, wrapper=cuda_p2g.p2g_accumulate, plain=p2g_plain, site="p2g",
             name="p2g_accumulate", source="fluidsimulation_tpu_torch/csrc/p2g.cu",
-            replaces="fluidsimulation_tpu/ops/pallas_p2g_super.py:71", per_step=1,
+            replaces="fluidsimulation_tpu/ops/pallas_p2g_super.py:71",
+        ),
+        "p2g2": dict(
+            module=cuda_p2g, wrapper=cuda_p2g.p2g_accumulate, plain=p2g_plain, site="p2g",
+            name="p2g_accumulate_ppc2", source="fluidsimulation_tpu_torch/csrc/p2g.cu",
+            replaces="fluidsimulation_tpu/ops/pallas_p2g.py:54",
         ),
         "g2p": dict(
             module=cuda_g2p, wrapper=cuda_g2p.g2p_flip, plain=cuda_g2p.g2p_flip_plain,
-            name="g2p_flip", source="fluidsimulation_tpu_torch/csrc/g2p.cu",
-            replaces="fluidsimulation_tpu/core/pallas_pairpack.py:52", per_step=1,
+            site="g2p", name="g2p_flip", source="fluidsimulation_tpu_torch/csrc/g2p.cu",
+            replaces="fluidsimulation_tpu/core/pallas_pairpack.py:52",
+        ),
+        "sor": dict(
+            module=cuda_sor, wrapper=cuda_sor.sor_pressure, plain=cuda_sor.sor_pressure_plain,
+            site="sor", name="sor_pressure", source="fluidsimulation_tpu_torch/csrc/sor.cu",
+            replaces="fluidsimulation_tpu/ops/pallas_sor.py:68",
         ),
     }
+
+
+def per_step_launches() -> dict:
+    """Kernel module -> launches in one step, on every path."""
+    from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep
+
+    return {cuda_seed: 1, cuda_sweep: len(cuda_sweep.SWEEP_ORDER), cuda_p2g: 1, cuda_sor: 1,
+            cuda_g2p: 1}
+
+
+class LaunchCheck:
+    """Counts set to 0 when a path starts; each step must launch each
+    kernel its expected number of times; ``totals`` read when it ends."""
+
+    def __init__(self, label: str):
+        self.label = label
+        self.expect = per_step_launches()
+        for module in self.expect:
+            module.KERNEL.launches = 0
+        self.steps = 0
+
+    def step(self, fn):
+        before = {m: m.KERNEL.launches for m in self.expect}
+        out = fn()
+        for m, n in self.expect.items():
+            got = m.KERNEL.launches - before[m]
+            if got != n:
+                raise AssertionError(f"{self.label} step {self.steps}: {m.KERNEL.symbol} "
+                                     f"launched {got} times, expected {n}")
+        self.steps += 1
+        return out
+
+    def totals(self) -> dict:
+        out = {m.KERNEL.symbol: m.KERNEL.launches for m in self.expect}
+        for symbol, n in out.items():
+            if n == 0:
+                raise AssertionError(f"{self.label}: {symbol} was never launched")
+        say(f"{self.label}: launches in {self.steps} steps: "
+            + ", ".join(f"{k}={v}" for k, v in out.items()))
+        return out
+
+
+def bound(key: str, args) -> tuple[float, str]:
+    """Least time the card could take for the function, in ms: the larger of
+    the bytes it must move (inputs read once, outputs written once) over
+    the memory rate and its float32 operations over the peak rate.
+    Operation counts per unit of work, each sum, product, compare, floor,
+    sqrt or division counted as one:
+      distance |a - b| - r and its compare: 11 (seed x27 a cell, sweep x24);
+      P2G: per particle and component, 3 axis splits (9), 8 hat weights
+        (16), 8 accumulations of w*vel and w (24): 147 a particle;
+      G2P: 6 trilinear gathers of 7 lerps (126), 6 axis splits with clamps
+        (33), scaling and the FLIP blend (9): 168 a particle;
+      SOR: 6 neighbour subtractions, b - nms, two products, a division and
+        a sum, 11 per fluid cell per iteration (this run's fluid cells).
+    """
+    cfg = args[0]
+    cells = cfg.nx * cfg.ny * cfg.nz
+    faces = sum(math.prod(s) for s in (cfg.u_shape(), cfg.v_shape(), cfg.w_shape()))
+    if key == "seed":
+        nbytes, ops = (12 + 4 + 12) * cells, 27 * 11 * cells
+    elif key == "sweep":
+        nbytes, ops = 2 * (4 + 12) * cells, 24 * 11 * cells
+    elif key in ("p2g", "p2g2"):
+        n = args[1].shape[0]
+        nbytes, ops = 24 * n + 4 * (cells + 1) + 2 * 4 * faces, 147 * n
+    elif key == "g2p":
+        n = args[1].shape[0]
+        nbytes, ops = 48 * n + 2 * 4 * faces, 168 * n
+    elif key == "sor":
+        fluid = int((args[1] < 0).sum())
+        nbytes, ops = 4 * 4 * cells, 11 * fluid * cfg.sor_iterations
+    else:
+        raise KeyError(key)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def compare(key: str, got, want) -> tuple[float, str]:
     """Hold a kernel's outputs against its plain version's. Returns the
     largest absolute difference and a note; raises past the tolerance."""
+    if key == "sor":
+        # -fmad=false and IEEE division, the plain version's operation
+        # order: bit for bit.
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"sor: not bit-exact (max abs err {err})")
+        return err, "bit-exact"
     if key in ("seed", "sweep"):
         # Expected bit-exact (-fmad=false); the bound is the JAX package's
         # own Pallas-vs-XLA bound for these passes.
@@ -139,7 +263,7 @@ def compare(key: str, got, want) -> tuple[float, str]:
         if err > 2e-6:
             raise AssertionError(f"{key}: max abs err {err} > 2e-6")
         return err, "bit-exact" if exact else "within 2e-6"
-    if key == "p2g":
+    if key in ("p2g", "p2g2"):
         # Summation order differs (gather vs index_add_): validity equal
         # except within rounding of the threshold; rtol = atol = 2e-4 on
         # faces valid in both.
@@ -149,14 +273,14 @@ def compare(key: str, got, want) -> tuple[float, str]:
             near = (amt_p - 0.01).abs() < 1e-6
             bad = (vk != vp) & ~near
             if bool(bad.any()):
-                raise AssertionError(f"p2g: {int(bad.sum())} faces differ in validity")
+                raise AssertionError(f"{key}: {int(bad.sum())} faces differ in validity")
             flips += int((vk != vp).sum())
             both = vk & vp
             gk = acc_k / amt_k.clamp(min=1e-30)
             gp = acc_p / amt_p.clamp(min=1e-30)
             d = (gk - gp).abs()[both]
             if d.numel() and bool((d > 2e-4 + 2e-4 * gp.abs()[both]).any()):
-                raise AssertionError(f"p2g: normalised faces differ by up to {float(d.max())}")
+                raise AssertionError(f"{key}: normalised faces differ by up to {float(d.max())}")
             err = max(err, float(d.max()) if d.numel() else 0.0)
         return err, f"validity equal ({flips} faces within 1e-6 of the threshold flip)"
     # g2p: vel' and k1 within 1e-5 abs.
@@ -166,22 +290,163 @@ def compare(key: str, got, want) -> tuple[float, str]:
     return err, "within 1e-5"
 
 
-def check_kernels(table, args_by_key, label: str, results: dict, timed: bool) -> None:
-    for key, k in table.items():
-        args = args_by_key[key]
+def check_kernels(table, keys, captured, label: str, results: dict, timed=()) -> None:
+    """Compare each kernel in ``keys`` with its plain version on the
+    captured inputs and print its bound there; time the kernels in
+    ``timed``, whose times and bounds go to the report."""
+    for key in keys:
+        k = table[key]
+        args = captured[k["site"]]
         got = k["wrapper"](*args)
         want = k["plain"](*args)
         torch.cuda.synchronize()
         err, note = compare(key, got, want)
         entry = results.setdefault(key, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        line = f"phase 2 [{label}] {k['name']}: max_abs_err={err!r} ({note})"
-        if timed:
+        b_ms, b_by = bound(key, args)
+        line = (f"phase 2 [{label}] {k['name']}: max_abs_err={err!r} ({note}), "
+                f"bound {b_ms!r} ms ({b_by})")
+        if key in timed:
             reps_plain = 2 if key == "sweep" else 10
             entry["ms"] = cuda_ms(lambda: k["wrapper"](*args), 20)
             entry["plain_ms"] = cuda_ms(lambda: k["plain"](*args), reps_plain)
-            line += f"  kernel {entry['ms']!r} ms, plain {entry['plain_ms']!r} ms"
+            entry["bound_ms"], entry["bound_by"] = b_ms, b_by
+            line += f"; kernel {entry['ms']!r} ms, plain {entry['plain_ms']!r} ms"
         say(line)
+
+
+def timed_steps(check, n_steps, state, dt, cfg, captured):
+    """n_steps of ``step`` through the launch check, CUDA-event timed; the
+    last step's kernel arguments go to ``captured``. Returns the state and
+    the step times after the warm-up."""
+    import fluidsimulation_tpu_torch as ft
+
+    times = []
+    for i in range(n_steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        if i == n_steps - 1:
+            with capture(captured):
+                state = check.step(lambda: ft.step(state, dt, cfg))
+        else:
+            state = check.step(lambda: ft.step(state, dt, cfg))
+        end.record()
+        torch.cuda.synchronize()
+        if i >= N_WARMUP:
+            times.append(start.elapsed_time(end))
+    return state, times
+
+
+def check_finite(label: str, state) -> None:
+    for name in (*FIELDS, "k1"):
+        t = getattr(state, name)
+        if t is not None and not bool(t.isfinite().all()):
+            raise AssertionError(f"{label}: non-finite values in {name}")
+
+
+def run_demo(table, results, card):
+    """Phase 5: app.demo.main at its defaults, every step through the
+    launch check; then the kernels on the last step's inputs."""
+    from fluidsimulation_tpu_torch.app import demo
+    from fluidsimulation_tpu_torch.utils.checkpoint import load_state
+
+    check = LaunchCheck("phase 5 (demo 64^3 ppc 2)")
+    times, seen, verdicts, captured = [], {}, [], {}
+    orig_step, orig_check = demo.step, demo.check_state
+
+    def counted_step(state, dt, cfg):
+        i = check.steps
+        if i == 0:
+            if state.pos.shape[0] != DEMO_PARTICLES:
+                raise AssertionError(f"demo: expected {DEMO_PARTICLES} particles, "
+                                     f"got {state.pos.shape[0]}")
+            seen["y0"] = float(state.pos[:, 1].mean())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        if i == DEMO_STEPS - 1:
+            with capture(captured):
+                out = check.step(lambda: orig_step(state, dt, cfg))
+        else:
+            out = check.step(lambda: orig_step(state, dt, cfg))
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        seen["state"], seen["cfg"] = out, cfg
+        return out
+
+    def recorded_check(state):
+        ok = orig_check(state)
+        verdicts.append(ok)
+        return ok
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as out_dir:
+        demo.step, demo.check_state = counted_step, recorded_check
+        try:
+            rc = demo.main(["--device", "cuda", "--save-state", "--out", out_dir])
+        finally:
+            demo.step, demo.check_state = orig_step, orig_check
+        if rc != 0:
+            raise AssertionError(f"demo: main returned {rc}")
+        launches = check.totals()
+        if check.steps != DEMO_STEPS:
+            raise AssertionError(f"demo: ran {check.steps} steps, expected {DEMO_STEPS}")
+        if not verdicts or not all(verdicts):
+            raise AssertionError(f"demo: check_state verdicts {verdicts}")
+        state, cfg = seen["state"], seen["cfg"]
+        check_finite("phase 5", state)
+        y1 = float(state.pos[:, 1].mean())
+        if not y1 < seen["y0"]:
+            raise AssertionError(f"demo: centre of mass did not fall ({seen['y0']} -> {y1})")
+        loaded = load_state(str(Path(out_dir) / "final_state.npz"), state.pos.device, cfg)
+        for name in FIELDS:
+            if not torch.equal(getattr(loaded, name), getattr(state, name)):
+                raise AssertionError(f"demo: checkpoint field {name} differs from the final state")
+    step_ms = statistics.median(times[N_WARMUP:])
+    say(f"phase 5: {check.steps} steps of {cfg.nx}^3, {DEMO_PARTICLES} particles; all fields "
+        f"finite; mean y {seen['y0']!r} -> {y1!r}; checkpoint reloads equal; "
+        f"{len(verdicts)} check_state verdicts all true")
+    say(f"phase 5: median step {step_ms!r} ms over {len(times) - N_WARMUP} steps after "
+        f"{N_WARMUP} warm-up (min {min(times[N_WARMUP:])!r}, max {max(times[N_WARMUP:])!r}) "
+        f"on {card}")
+    check_kernels(table, ("seed", "sweep", "p2g2", "sor", "g2p"), captured,
+                  f"{cfg.nx}^3 ppc 2", results, timed=("p2g2",))
+    return launches, step_ms
+
+
+def run_physical(table, card):
+    """Phase 6: the physical configuration, 10 steps."""
+    import fluidsimulation_tpu_torch as ft
+
+    cfg = ft.SimConfig(nx=PHYS_N, ny=PHYS_N, nz=PHYS_N, cells_per_meter=float(PHYS_N),
+                       particles_per_cell_axis=2)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = ft.init_state(cfg, DEVICE)
+    n = state.pos.shape[0]
+    say(f"phase 6: {PHYS_N}^3 ppc 2, {n} particles, dt={PHYS_DT!r}, {PHYS_STEPS} steps")
+    if n != PHYS_PARTICLES:
+        raise AssertionError(f"expected {PHYS_PARTICLES} particles, got {n}")
+    check = LaunchCheck("phase 6 (128^3 ppc 2)")
+    captured: dict = {}
+    state, times = timed_steps(check, PHYS_STEPS, state, PHYS_DT, cfg, captured)
+    launches = check.totals()
+    check_finite("phase 6", state)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(times)
+    say(f"phase 6: all fields finite; median step {step_ms!r} ms over {len(times)} steps after "
+        f"{N_WARMUP} warm-up (min {min(times)!r}, max {max(times)!r}); peak device memory "
+        f"{peak} B ({peak / 2**30:.3f} GiB) on {card}")
+    for key, site in (("p2g2", "p2g"), ("sor", "sor")):
+        args = captured[site]
+        ms = cuda_ms(lambda: table[key]["wrapper"](*args), 10)
+        b_ms, b_by = bound(key, args)
+        say(f"phase 6: {table[key]['name']} at {PHYS_N}^3 ppc 2: kernel {ms!r} ms, "
+            f"bound {b_ms!r} ms ({b_by})")
+    return launches, step_ms, peak
 
 
 def main() -> int:
@@ -210,6 +475,7 @@ def main() -> int:
             say(f"phase 1: ptxas: {line.split('info    :')[-1].strip()}")
 
     table = kernel_table()
+    ppc1_keys = ("seed", "sweep", "p2g", "sor", "g2p")
     results: dict = {}
 
     # Phase 2 at 32^3: a few CPU steps, then one step on the card, recording
@@ -224,7 +490,7 @@ def main() -> int:
     with capture(captured_small):
         card_next = ft.step(card_state, DT, small)
     torch.cuda.synchronize()
-    check_kernels(table, captured_small, f"{SMALL_N}^3", results, timed=False)
+    check_kernels(table, ppc1_keys, captured_small, f"{SMALL_N}^3", results)
 
     # Phase 3: the main path, 128^3 dam break.
     cfg = ft.SimConfig(nx=MAIN_N, ny=MAIN_N, nz=MAIN_N, cells_per_meter=float(MAIN_N),
@@ -236,34 +502,11 @@ def main() -> int:
     if n != MAIN_PARTICLES:
         raise AssertionError(f"expected {MAIN_PARTICLES} particles, got {n}")
     y0 = float(state.pos[:, 1].mean())
-    for k in table.values():
-        k["module"].KERNEL.launches = 0
-    times = []
+    check = LaunchCheck("phase 3 (128^3 ppc 1)")
     captured_big: dict = {}
-    for i in range(N_STEPS):
-        before = {key: k["module"].KERNEL.launches for key, k in table.items()}
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        if i == N_STEPS - 1:
-            with capture(captured_big):
-                state = ft.step(state, DT, cfg)
-        else:
-            state = ft.step(state, DT, cfg)
-        end.record()
-        torch.cuda.synchronize()
-        if i >= N_WARMUP:
-            times.append(start.elapsed_time(end))
-        for key, k in table.items():
-            got = k["module"].KERNEL.launches - before[key]
-            if got != k["per_step"]:
-                raise AssertionError(f"step {i}: {k['name']} launched {got} times, expected {k['per_step']}")
-    launches = {key: k["module"].KERNEL.launches for key, k in table.items()}
-    say(f"phase 3: launches in {N_STEPS} steps: " + ", ".join(
-        f"{table[key]['name']}={v}" for key, v in launches.items()))
-    for name in ("pos", "vel", "u", "v", "w", "phi", "k1"):
-        if not bool(getattr(state, name).isfinite().all()):
-            raise AssertionError(f"phase 3: non-finite values in {name}")
+    state, times = timed_steps(check, N_STEPS, state, DT, cfg, captured_big)
+    launches = check.totals()
+    check_finite("phase 3", state)
     m = torch.tensor([cfg.nx, cfg.ny, cfg.nz], dtype=torch.float32, device=dev)
     lo, hi = -0.4 / m, 1.0 - 0.6 / m
     if not bool(((state.pos >= lo - 1e-6) & (state.pos <= hi + 1e-6)).all()):
@@ -277,12 +520,13 @@ def main() -> int:
         f"(min {min(times)!r}, max {max(times)!r}) on {card}")
 
     # Phase 2 at 128^3, on the inputs of the last main-path step.
-    check_kernels(table, captured_big, f"{MAIN_N}^3", results, timed=True)
+    check_kernels(table, ppc1_keys, captured_big, f"{MAIN_N}^3", results, timed=ppc1_keys)
+    del state, captured_big
 
     # Phase 4: the 32^3 card step vs the same step on the CPU.
     cpu_next = ft.step(cpu_state, DT, small)
     worst = 0.0
-    for name in ("pos", "vel", "u", "v", "w", "phi", "k1"):
+    for name in (*FIELDS, "k1"):
         d = float((getattr(card_next, name).cpu() - getattr(cpu_next, name)).abs().max())
         if d > 1e-4:
             raise AssertionError(f"phase 4: {name} differs by {d} > 1e-4")
@@ -290,17 +534,31 @@ def main() -> int:
         say(f"phase 4: {SMALL_N}^3 step, card vs CPU, {name}: max abs diff {d!r}")
     say(f"phase 4: all fields within 1e-4 (max {worst!r})")
 
-    # Phase 5.
+    # Phase 5: the demo entry point; phase 6: the physical configuration.
+    demo_launches, demo_ms = run_demo(table, results, card)
+    phys_launches, phys_ms, phys_peak = run_physical(table, card)
+
+    # Phase 7.
+    symbol = {key: k["module"].KERNEL.symbol for key, k in table.items()}
     kernels = [
         {
             "name": k["name"], "route": "cuda", "source": k["source"],
-            "replaces": k["replaces"], "launches": launches[key],
+            "replaces": k["replaces"],
+            "launches": (demo_launches if key == "p2g2" else launches)[symbol[key]],
             "max_abs_err": results[key]["max_abs_err"],
             "ms": results[key]["ms"], "plain_ms": results[key]["plain_ms"],
+            "bound_ms": results[key]["bound_ms"], "bound_by": results[key]["bound_by"],
+            "library_ms": None,
         }
         for key, k in table.items()
     ]
-    say(json.dumps({"kernels": kernels, "step_ms": step_ms, "card": card}))
+    say(json.dumps({
+        "kernels": kernels, "card": card,
+        "step_ms": {"128^3 ppc 1": step_ms, "demo 64^3 ppc 2": demo_ms, "128^3 ppc 2": phys_ms},
+        "launches": {"128^3 ppc 1": launches, "demo 64^3 ppc 2": demo_launches,
+                     "128^3 ppc 2": phys_launches},
+        "peak_bytes_128^3_ppc2": phys_peak,
+    }))
     say(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

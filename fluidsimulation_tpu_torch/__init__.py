@@ -6,7 +6,8 @@ module for module and name for name:
   core/    config, minstd seeding, state (a dataclass of tensors), MAC interpolation
   ops/     the op set; ops/cuda_*.py wrap the hand-written kernels in csrc/
   solver/  step(), step_guarded(), simulate()
-  utils/   velocity_guard
+  utils/   Meter, velocity_guard, check_state; npz checkpoints
+  app/     the demo CLI (python -m fluidsimulation_tpu_torch)
 
 The package imports torch and never jax. Kernels build on first use
 (_build.py); a CPU tensor takes each kernel's plain PyTorch version.

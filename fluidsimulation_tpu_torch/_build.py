@@ -1,10 +1,11 @@
 """Build, load and launch the hand-written CUDA kernels (csrc/*.cu).
 
-nvcc compiles every source in ``csrc/`` into one shared library with a plain
-C interface, which ctypes loads. The library's name carries a hash of the
-sources and flags: an edit rebuilds, an unchanged tree reuses the build. The
-build goes to ``build/fluidsimulation_tpu_torch/`` beside the package and
-uses only the CUDA toolkit's own headers.
+nvcc compiles each source in ``csrc/`` to an object file, one process per
+source, all started together, and links the objects into one shared
+library with a plain C interface, which ctypes loads. The library's name
+carries a hash of the sources and flags: an edit rebuilds, an unchanged
+tree reuses the build. The build goes to ``build/fluidsimulation_tpu_torch/``
+beside the package and uses only the CUDA toolkit's own headers.
 
 The flags are fixed: sm_90a (Hopper), -O3, and -fmad=false. The level-set
 kernels pick among near-ties with a strict `<`, and a contracted
@@ -29,11 +30,12 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "fluidsimulation_tpu_torch"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+    *ARCH,
     "-std=c++17", "-O3", "-fmad=false",
     "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lib = None
@@ -62,6 +64,24 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libfst_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(commands: list[list[str]]) -> str:
+    """Run the commands at once; return their joined output, or raise with
+    it if any failed."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in commands
+    ]
+    outs = [proc.communicate()[0] for proc in procs]
+    failed = [(cmd, proc.returncode) for cmd, proc in zip(commands, procs) if proc.returncode]
+    if failed:
+        raise RuntimeError(
+            "nvcc failed: "
+            + "; ".join(f"{Path(cmd[-1]).name} exit code {rc}" for cmd, rc in failed)
+            + "\n" + "".join(outs)
+        )
+    return "".join(outs)
+
+
 def build() -> Path:
     """Compile the kernels unless a build of these sources exists. Raises
     with the compiler's output if nvcc fails. The compiler's report
@@ -70,19 +90,23 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cu],
-        capture_output=True, text=True, check=False,
-    )
-    if proc.returncode != 0:
+    stem = f"{lib.stem}.{os.getpid()}"
+    cu = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in cu]
+    tmp = lib.with_name(f"{stem}.so.tmp")
+    nvcc = _nvcc()
+    try:
+        log = _run_all([
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(cu, objs)
+        ])
+        log += _run_all([[nvcc, "-shared", *ARCH, "-o", str(tmp), *map(str, objs)]])
+        lib.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stdout}{proc.stderr}"
-        )
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return lib
 
 

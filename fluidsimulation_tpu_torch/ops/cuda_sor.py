@@ -1,0 +1,82 @@
+"""Checkerboard SOR pressure solve: the CUDA kernel (csrc/sor.cu) and its
+plain PyTorch version.
+
+Replaces fluidsimulation_tpu/ops/pallas_sor.py::_sor_kernel (via
+sor_pressure_pallas), which the JAX package runs only where its working set
+fits VMEM; on the card the kernel is the solve at every grid size. Both
+forms start from p = 0 and run ``cfg.sor_iterations`` iterations of colour
+0 then colour 1, the red-black order that makes each masked half-update
+exact Gauss-Seidel (ops/project.py:74-123 of the JAX package). A CPU tensor
+takes the plain version; a CUDA tensor launches the kernel, one launch per
+solve.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..core.config import SimConfig
+from .common import shift
+
+KERNEL = _build.Kernel(
+    "fst_sor",
+    [_build.P] * 5 + [_build.I] * 4 + [_build.F, _build.F],
+)
+
+
+def relaxation(cfg: SimConfig) -> tuple[np.float32, np.float32]:
+    """(omega, 1 - omega) as float32, omega = 2 - 3.16343/nx
+    (Simulation.cpp:909); both forms use these exact values."""
+    omega = np.float32(cfg.omega)
+    return omega, np.float32(1.0 - omega)
+
+
+def sor_pressure_plain(cfg: SimConfig, phi, diag, b):
+    nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
+    omega, one_minus_omega = relaxation(cfg)
+    fluid = phi < 0.0
+    dev = phi.device
+    parity = (
+        torch.arange(nx, device=dev)[:, None, None]
+        + torch.arange(ny, device=dev)[None, :, None]
+        + torch.arange(nz, device=dev)[None, None, :]
+    ) % 2
+    update = [fluid & (parity == color) for color in (0, 1)]
+    nb_fluid = [shift(fluid, axis, s, False) for axis in range(3) for s in (-1, 1)]
+
+    def half_update(p, color):
+        nms = torch.zeros_like(p)
+        k = 0
+        for axis in range(3):
+            for s in (-1, 1):
+                nms = nms - torch.where(nb_fluid[k], shift(p, axis, s, 0.0), 0.0)
+                k += 1
+        upd = one_minus_omega * p + omega * (b - nms) / diag
+        return torch.where(update[color], upd, p)
+
+    p = torch.zeros_like(b)
+    for _ in range(cfg.sor_iterations):
+        p = half_update(p, 0)
+        p = half_update(p, 1)
+    return p
+
+
+def sor_pressure(cfg: SimConfig, phi, diag, b):
+    """Checkerboard SOR from p = 0 (gpProjectIteration{1,2}.hlsl x100).
+
+    phi, diag, b: (nx, ny, nz) float32. Returns p (nx, ny, nz)."""
+    if phi.device.type == "cpu":
+        return sor_pressure_plain(cfg, phi, diag, b)
+    shape = cfg.grid_shape()
+    dev = _build.same_device(phi, diag, b)
+    args = [_build.check(t, name, shape) for t, name in ((phi, "phi"), (diag, "diag"), (b, "b"))]
+    p = torch.empty(shape, dtype=torch.float32, device=dev)
+    mask = torch.empty(shape, dtype=torch.uint8, device=dev)
+    omega, one_minus_omega = relaxation(cfg)
+    KERNEL.launch(
+        dev, *args, p.data_ptr(), mask.data_ptr(), *shape,
+        cfg.sor_iterations, float(omega), float(one_minus_omega),
+    )
+    return p

@@ -3,9 +3,8 @@ pressure-gradient velocity update.
 
 Port of fluidsimulation_tpu/ops/project.py (gpProjectComputeRHS.hlsl,
 gpProjectComputeDiagCoeffs.hlsl, gpProjectIteration{1,2}.hlsl x100 and
-gpProjectToVel.hlsl). The SOR is plain PyTorch: colour 0 then colour 1,
-``cfg.sor_iterations`` times, the red-black order that makes each masked
-half-update exact Gauss-Seidel. omega = 2 - 3.16343/nx (Simulation.cpp:909).
+gpProjectToVel.hlsl). The SOR is ops/cuda_sor.py: the CUDA kernel on the
+card at every grid size, its plain PyTorch version on the CPU.
 """
 
 from __future__ import annotations
@@ -15,6 +14,7 @@ import torch
 
 from ..core.config import SimConfig
 from .common import shift
+from .cuda_sor import sor_pressure
 
 
 def compute_rhs(cfg: SimConfig, u, v, w, dt):
@@ -53,37 +53,6 @@ def compute_diag(cfg: SimConfig, phi):
             nb = shift(phi, axis, s, 0.0)
             ghost = ghost + torch.clamp(-nb * recip, 0.0, maxr)
     return torch.where(fluid, num + ghost, 1.0)
-
-
-def sor_pressure(cfg: SimConfig, phi, diag, b):
-    """Checkerboard SOR from p = 0: colour 0, then colour 1, per iteration."""
-    nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
-    omega = np.float32(cfg.omega)
-    fluid = phi < 0.0
-    dev = phi.device
-    parity = (
-        torch.arange(nx, device=dev)[:, None, None]
-        + torch.arange(ny, device=dev)[None, :, None]
-        + torch.arange(nz, device=dev)[None, None, :]
-    ) % 2
-    update = [fluid & (parity == color) for color in (0, 1)]
-    nb_fluid = [shift(fluid, axis, s, False) for axis in range(3) for s in (-1, 1)]
-
-    def half_update(p, color):
-        nms = torch.zeros_like(p)
-        k = 0
-        for axis in range(3):
-            for s in (-1, 1):
-                nms = nms - torch.where(nb_fluid[k], shift(p, axis, s, 0.0), 0.0)
-                k += 1
-        upd = (1.0 - omega) * p + omega * (b - nms) / diag
-        return torch.where(update[color], upd, p)
-
-    p = torch.zeros_like(b)
-    for _ in range(cfg.sor_iterations):
-        p = half_update(p, 0)
-        p = half_update(p, 1)
-    return p
 
 
 def apply_pressure(cfg: SimConfig, u, v, w, p, phi, dt):

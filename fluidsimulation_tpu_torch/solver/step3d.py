@@ -9,8 +9,9 @@ One frame in the order of GPFluidSim::Simulate (Simulation.cpp:513-566):
 
 The port runs the semantics of the JAX package's exact path (``fast=False``
 and its exact tiers): the CSR index is unbounded, so there are no slot
-tables, supercells or overflow tiers. On the card, the 27-neighbourhood
-pass, the sweeps, P2G and the FLIP gather are the CUDA kernels of
+tables, supercells or overflow tiers, and one path serves every particle
+count (ppc 1 and ppc 2 alike). On the card, the 27-neighbourhood pass, the
+sweeps, P2G, the SOR and the FLIP gather are the CUDA kernels of
 ops/cuda_*.py; the rest is PyTorch.
 """
 

@@ -6,9 +6,10 @@ Marked ``cuda``: each test skips without a CUDA card. On a machine with one
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Inputs are made on the CPU at 32^3 and carried to the card. The seed and
-sweep kernels are compiled with -fmad=false and must match bit for bit; the
-P2G kernel sums in another order than index_add_ (validity equal, rtol =
-atol = 2e-4 on valid faces); the G2P kernel within 1e-5 abs.
+sweep kernels and the SOR are compiled with -fmad=false and must match bit
+for bit; the P2G kernel sums in another order than index_add_ (validity
+equal, rtol = atol = 2e-4 on valid faces), at ppc 1 and at ppc 2; the G2P
+kernel within 1e-5 abs.
 """
 
 import numpy as np
@@ -17,14 +18,16 @@ import torch
 
 import fluidsimulation_tpu_torch as ft
 from fluidsimulation_tpu_torch.core.seeding import noise_grids
-from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sweep
+from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep
 from fluidsimulation_tpu_torch.ops.binning import build_csr
 from fluidsimulation_tpu_torch.ops.levelset import seed_own_cell
+from fluidsimulation_tpu_torch.ops.project import compute_diag, compute_rhs
 
 pytestmark = pytest.mark.cuda
 
 N = 32
 CFG = ft.SimConfig(nx=N, ny=N, nz=N, cells_per_meter=float(N), particles_per_cell_axis=1)
+CFG2 = ft.SimConfig(nx=N, ny=N, nz=N, cells_per_meter=float(N), particles_per_cell_axis=2)
 
 
 @pytest.fixture
@@ -34,11 +37,11 @@ def dev():
     return torch.device("cuda:0")
 
 
-def _particles(dev):
+def _particles(dev, cfg=CFG):
     """Dam-break positions with velocities sampled from noise grids."""
-    s = ft.init_state(CFG, "cpu")
-    grids = [torch.from_numpy(g) for g in noise_grids(CFG, seed=5)]
-    vel = cuda_g2p.g2p_flip_plain(CFG, s.pos, s.vel, *grids, *grids, 0.0)[1]
+    s = ft.init_state(cfg, "cpu")
+    grids = [torch.from_numpy(g) for g in noise_grids(cfg, seed=5)]
+    vel = cuda_g2p.g2p_flip_plain(cfg, s.pos, s.vel, *grids, *grids, 0.0)[1]
     return s.pos.to(dev), vel.to(dev)
 
 
@@ -63,20 +66,37 @@ def test_seed_and_sweep_kernels_bit_exact(dev):
     assert torch.equal(sphi, want[0]) and torch.equal(scpos, want[1])
 
 
-def test_p2g_kernel_matches_plain(dev):
-    pos, vel = _particles(dev)
-    csr = build_csr(CFG, pos)
+@pytest.mark.parametrize("cfg", [CFG, CFG2], ids=["ppc1", "ppc2"])
+def test_p2g_kernel_matches_plain(dev, cfg):
+    pos, vel = _particles(dev, cfg)
+    csr = build_csr(cfg, pos)
     pcs, vels = (pos * N)[csr.order], vel[csr.order]
-    got, n = _counted(cuda_p2g, cuda_p2g.p2g_accumulate, CFG, pcs, vels, csr.start)
+    got, n = _counted(cuda_p2g, cuda_p2g.p2g_accumulate, cfg, pcs, vels, csr.start)
     assert n == 1
-    want = cuda_p2g.p2g_accumulate_plain(CFG, pcs, vels)
+    want = cuda_p2g.p2g_accumulate_plain(cfg, pcs, vels)
     for (acc_k, amt_k), (acc_p, amt_p) in zip(got, want):
-        near = (amt_p - CFG.zero_thresh).abs() < 1e-6
-        valid_k, valid_p = amt_k > CFG.zero_thresh, amt_p > CFG.zero_thresh
+        near = (amt_p - cfg.zero_thresh).abs() < 1e-6
+        valid_k, valid_p = amt_k > cfg.zero_thresh, amt_p > cfg.zero_thresh
         assert not bool(((valid_k != valid_p) & ~near).any())
         both = valid_k & valid_p
         torch.testing.assert_close((acc_k / amt_k)[both], (acc_p / amt_p)[both],
                                    rtol=2e-4, atol=2e-4)
+
+
+def test_sor_kernel_bit_exact(dev):
+    """The SOR on the dam break's level set with a noise-grid RHS (p ~ 1e3
+    after 100 iterations): one launch, bit for bit the plain version."""
+    pos, _ = _particles(dev)
+    phi = cuda_sweep.sweep_closest(
+        CFG, *cuda_seed.neighborhood_pass(CFG, seed_own_cell(CFG, build_csr(CFG, pos), pos * N)))[0]
+    grids = [torch.from_numpy(g).to(dev) for g in noise_grids(CFG, seed=7)]
+    b = compute_rhs(CFG, *grids, 0.01)
+    diag = compute_diag(CFG, phi)
+    p, n = _counted(cuda_sor, cuda_sor.sor_pressure, CFG, phi, diag, b)
+    assert n == 1
+    want = cuda_sor.sor_pressure_plain(CFG, phi, diag, b)
+    assert float(want.abs().max()) > 1.0
+    assert torch.equal(p, want)
 
 
 def test_g2p_kernel_matches_plain(dev):
@@ -106,6 +126,10 @@ def test_wrappers_reject_bad_arguments(dev):
     phi = torch.zeros((N, N, N), device=dev)
     with pytest.raises(ValueError, match="devices"):
         cuda_sweep.sweep_closest(CFG, phi, torch.zeros((N, N, N, 3)))
+    with pytest.raises(ValueError, match="devices"):
+        cuda_sor.sor_pressure(CFG, phi, phi, torch.zeros((N, N, N)))
+    with pytest.raises(ValueError, match="shape"):
+        cuda_sor.sor_pressure(CFG, phi, phi, torch.zeros((N, N, N + 1), device=dev))
 
 
 def test_step_on_card_matches_cpu(dev):
