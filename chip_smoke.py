@@ -24,9 +24,9 @@ it exits non-zero at once.
 Phases, each printing before the next:
   0  card name and power limit; TF32 off
   1  kernel build (seconds)
-  2  kernels vs plain versions at 32^3 (here), at 128^3 (after phase 3) and
-     at 64^3/ppc 2 (after phase 5), on the inputs each kernel received in a
-     step of the path
+  2  kernels vs plain versions at 32^3 (here), at 128^3 (after phase 3),
+     at 64^3/ppc 2 (after phase 5) and at 128^3/ppc 2 (after phase 6), on
+     the inputs each kernel received in the last step of the path
   3  20 steps at 128^3; launch counts per step; median step time
   4  the 32^3 card step of phase 2 vs the same step on the CPU
   5  the demo at its defaults; launches per step; checkpoint reload
@@ -36,7 +36,6 @@ Phases, each printing before the next:
 
 from __future__ import annotations
 
-import contextlib
 import json
 import math
 import statistics
@@ -96,33 +95,22 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-@contextlib.contextmanager
 def capture(store: dict):
-    """Record the arguments the step passes to each kernel wrapper."""
-    from fluidsimulation_tpu_torch.ops import flip, levelset, p2g, project
+    """While open, record the arguments the step passes to each kernel
+    wrapper, under the wrapper's key."""
+    from fluidsimulation_tpu_torch.utils.profiling import hooked
 
-    sites = [
-        (levelset, "neighborhood_pass", "seed"),
-        (levelset, "sweep_closest", "sweep"),
-        (p2g, "p2g_accumulate", "p2g"),
-        (project, "sor_pressure", "sor"),
-        (flip, "g2p_flip", "g2p"),
-    ]
-    saved = []
-    for module, attr, key in sites:
-        orig = getattr(module, attr)
+    def record(key, orig, args):
+        store[key] = args
+        return orig(*args)
 
-        def rec(*args, _orig=orig, _key=key):
-            store[_key] = args
-            return _orig(*args)
-
-        saved.append((module, attr, orig))
-        setattr(module, attr, rec)
-    try:
-        yield store
-    finally:
-        for module, attr, orig in saved:
-            setattr(module, attr, orig)
+    return hooked([
+        ("ops.levelset", "neighborhood_pass", "seed"),
+        ("ops.levelset", "sweep_closest", "sweep"),
+        ("ops.p2g", "p2g_accumulate", "p2g"),
+        ("ops.project", "sor_pressure", "sor"),
+        ("ops.flip", "g2p_flip", "g2p"),
+    ], record)
 
 
 def kernel_table():
@@ -290,10 +278,12 @@ def compare(key: str, got, want) -> tuple[float, str]:
     return err, "within 1e-5"
 
 
-def check_kernels(table, keys, captured, label: str, results: dict, timed=()) -> None:
+def check_kernels(table, keys, captured, label: str, results: dict, timed=(),
+                  report_times=True) -> None:
     """Compare each kernel in ``keys`` with its plain version on the
     captured inputs and print its bound there; time the kernels in
-    ``timed``, whose times and bounds go to the report."""
+    ``timed``. Their times and bounds go to the report unless
+    ``report_times`` is false. Every error goes to the report's maximum."""
     for key in keys:
         k = table[key]
         args = captured[k["site"]]
@@ -308,10 +298,11 @@ def check_kernels(table, keys, captured, label: str, results: dict, timed=()) ->
                 f"bound {b_ms!r} ms ({b_by})")
         if key in timed:
             reps_plain = 2 if key == "sweep" else 10
-            entry["ms"] = cuda_ms(lambda: k["wrapper"](*args), 20)
-            entry["plain_ms"] = cuda_ms(lambda: k["plain"](*args), reps_plain)
-            entry["bound_ms"], entry["bound_by"] = b_ms, b_by
-            line += f"; kernel {entry['ms']!r} ms, plain {entry['plain_ms']!r} ms"
+            ms = cuda_ms(lambda: k["wrapper"](*args), 20)
+            plain_ms = cuda_ms(lambda: k["plain"](*args), reps_plain)
+            if report_times:
+                entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            line += f"; kernel {ms!r} ms, plain {plain_ms!r} ms"
         say(line)
 
 
@@ -350,12 +341,12 @@ def run_demo(table, results, card):
     launch check; then the kernels on the last step's inputs."""
     from fluidsimulation_tpu_torch.app import demo
     from fluidsimulation_tpu_torch.utils.checkpoint import load_state
+    from fluidsimulation_tpu_torch.utils.profiling import hooked
 
     check = LaunchCheck("phase 5 (demo 64^3 ppc 2)")
     times, seen, verdicts, captured = [], {}, [], {}
-    orig_step, orig_check = demo.step, demo.check_state
 
-    def counted_step(state, dt, cfg):
+    def counted_step(orig_step, state, dt, cfg):
         i = check.steps
         if i == 0:
             if state.pos.shape[0] != DEMO_PARTICLES:
@@ -376,19 +367,19 @@ def run_demo(table, results, card):
         seen["state"], seen["cfg"] = out, cfg
         return out
 
-    def recorded_check(state):
+    def recorded_check(orig_check, state):
         ok = orig_check(state)
         verdicts.append(ok)
         return ok
 
+    def around(label, orig, args):
+        return (counted_step if label == "step" else recorded_check)(orig, *args)
+
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as out_dir:
-        demo.step, demo.check_state = counted_step, recorded_check
-        try:
+        with hooked([("app.demo", "step", "step"), ("app.demo", "check_state", "check")], around):
             rc = demo.main(["--device", "cuda", "--save-state", "--out", out_dir])
-        finally:
-            demo.step, demo.check_state = orig_step, orig_check
         if rc != 0:
             raise AssertionError(f"demo: main returned {rc}")
         launches = check.totals()
@@ -417,8 +408,11 @@ def run_demo(table, results, card):
     return launches, step_ms
 
 
-def run_physical(table, card):
-    """Phase 6: the physical configuration, 10 steps."""
+def run_physical(table, results, card):
+    """Phase 6: the physical configuration, 10 steps; then the kernels on
+    the last step's inputs, P2G and the SOR timed (printed, not reported:
+    the report's times are those at 128^3 ppc 1 and, for P2G at ppc 2, the
+    demo's)."""
     import fluidsimulation_tpu_torch as ft
 
     cfg = ft.SimConfig(nx=PHYS_N, ny=PHYS_N, nz=PHYS_N, cells_per_meter=float(PHYS_N),
@@ -440,12 +434,8 @@ def run_physical(table, card):
     say(f"phase 6: all fields finite; median step {step_ms!r} ms over {len(times)} steps after "
         f"{N_WARMUP} warm-up (min {min(times)!r}, max {max(times)!r}); peak device memory "
         f"{peak} B ({peak / 2**30:.3f} GiB) on {card}")
-    for key, site in (("p2g2", "p2g"), ("sor", "sor")):
-        args = captured[site]
-        ms = cuda_ms(lambda: table[key]["wrapper"](*args), 10)
-        b_ms, b_by = bound(key, args)
-        say(f"phase 6: {table[key]['name']} at {PHYS_N}^3 ppc 2: kernel {ms!r} ms, "
-            f"bound {b_ms!r} ms ({b_by})")
+    check_kernels(table, ("seed", "sweep", "p2g2", "sor", "g2p"), captured,
+                  f"{PHYS_N}^3 ppc 2", results, timed=("p2g2", "sor"), report_times=False)
     return launches, step_ms, peak
 
 
@@ -536,7 +526,7 @@ def main() -> int:
 
     # Phase 5: the demo entry point; phase 6: the physical configuration.
     demo_launches, demo_ms = run_demo(table, results, card)
-    phys_launches, phys_ms, phys_peak = run_physical(table, card)
+    phys_launches, phys_ms, phys_peak = run_physical(table, results, card)
 
     # Phase 7.
     symbol = {key: k["module"].KERNEL.symbol for key, k in table.items()}

@@ -2,7 +2,9 @@
 
 nvcc compiles each source in ``csrc/`` to an object file, one process per
 source, all started together, and links the objects into one shared
-library with a plain C interface, which ctypes loads. The library's name
+library with a plain C interface, which ctypes loads. Every fresh checkout
+builds from nothing, so the build takes about the time of the slowest
+source, not of all of them in a row. The library's name
 carries a hash of the sources and flags: an edit rebuilds, an unchanged
 tree reuses the build. The build goes to ``build/fluidsimulation_tpu_torch/``
 beside the package and uses only the CUDA toolkit's own headers.

@@ -7,8 +7,11 @@ pair of CUDA events on the current stream brackets every call. A stage's
 time is the device-timeline interval between its two events: its kernels
 and the gaps where the card waited for the host to launch them. On a CPU
 tensor the host clock takes the events' place (the CPU runs synchronously).
-The busy share is the device time ``torch.profiler`` records over a few
-steps (kernels, copies and fills), divided by their wall time.
+The device time of a step is what ``torch.profiler`` records on the card
+(kernels, copies and fills) over a few steps, per step. The busy share is
+that time over the median step time without the profiler; the profiler's
+own host cost stretches the profiled steps, so their wall time is printed
+beside it but is not the share's denominator.
 
 Run on the card from the repository root:
 
@@ -16,8 +19,8 @@ Run on the card from the repository root:
 
 It prints, for the three configurations chip_smoke.py drives (128^3 ppc 1,
 the demo's 64^3 ppc 2, 128^3 ppc 2), the median time of each stage over
-steps 3-12 from the dam-break start, the median step, and the busy share
-over steps 13-15.
+steps 3-12 from the dam-break start, the median step, and the device time
+of steps 13-15 and the busy share.
 """
 
 from __future__ import annotations
@@ -67,26 +70,38 @@ class _Clock:
 
 
 @contextlib.contextmanager
-def stage_marks(device: torch.device, marks: list):
-    """While open, every stage call appends (label, start, end) to marks."""
+def hooked(sites, around):
+    """While open, a call to any ``(module, attr, label)`` of sites (module
+    named under the package) runs ``around(label, orig, args)`` in place of
+    ``orig(*args)``, where the step's code looks the function up. The
+    originals come back on exit."""
     saved = []
-    for mod_name, attr, label in SITES:
+    for mod_name, attr, label in sites:
         module = importlib.import_module(f"fluidsimulation_tpu_torch.{mod_name}")
         orig = getattr(module, attr)
 
-        def timed(*args, _orig=orig, _label=label):
-            start = _Clock(device)
-            out = _orig(*args)
-            marks.append((_label, start, _Clock(device)))
-            return out
+        def hook(*args, _orig=orig, _label=label):
+            return around(_label, _orig, args)
 
         saved.append((module, attr, orig))
-        setattr(module, attr, timed)
+        setattr(module, attr, hook)
     try:
-        yield marks
+        yield
     finally:
-        for module, attr, orig in saved:
+        for module, attr, orig in reversed(saved):
             setattr(module, attr, orig)
+
+
+def stage_marks(device: torch.device, marks: list):
+    """While open, every stage call appends (label, start, end) to marks."""
+
+    def timed(label, orig, args):
+        start = _Clock(device)
+        out = orig(*args)
+        marks.append((label, start, _Clock(device)))
+        return out
+
+    return hooked(SITES, timed)
 
 
 def stage_times(state, dt, cfg, n_steps: int):
@@ -113,9 +128,9 @@ def stage_times(state, dt, cfg, n_steps: int):
     return state, per_step, totals
 
 
-def busy_share(state, dt, cfg, n_steps: int):
-    """Kernel time over wall time for n_steps steps, by torch.profiler.
-    Returns (state, kernel ms, wall ms)."""
+def device_time(state, dt, cfg, n_steps: int):
+    """Device time and wall time of n_steps steps under torch.profiler.
+    Returns (state, device ms a step, profiled wall ms a step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -132,7 +147,7 @@ def busy_share(state, dt, cfg, n_steps: int):
     # of the kernels it launched, which appear again as device events.
     kernel_us = sum(e.self_device_time_total for e in prof.key_averages()
                     if e.device_type == DeviceType.CUDA)
-    return state, kernel_us / 1e3, wall_ms
+    return state, kernel_us / 1e3 / n_steps, wall_ms / n_steps
 
 
 def main() -> int:
@@ -152,16 +167,19 @@ def main() -> int:
         state = ft.init_state(cfg, "cuda:0")
         state, _, _ = stage_times(state, dt, cfg, 2)  # warm-up: steps 1-2
         state, rows, totals = stage_times(state, dt, cfg, 10)
-        state, kernel_ms, wall_ms = busy_share(state, dt, cfg, 3)
+        state, device_ms, wall_ms = device_time(state, dt, cfg, 3)
         print(f"\n{n}^3 ppc {ppc}, {cfg.num_particles} particles, dt={dt!r}, steps 3-12, "
               f"medians of CUDA-event stage times, {card}")
         medians = {s: statistics.median(r[s] for r in rows) for s in STAGES}
         for s in sorted(STAGES, key=medians.get, reverse=True):
             print(f"  {s:24s} {medians[s]:10.4f} ms")
         print(f"  {'sum of stages':24s} {sum(medians.values()):10.4f} ms")
-        print(f"  {'step (median)':24s} {statistics.median(totals):10.4f} ms")
-        print(f"  busy share, steps 13-15 under torch.profiler: kernel {kernel_ms:.3f} ms / "
-              f"wall {wall_ms:.3f} ms = {kernel_ms / wall_ms:.3f}", flush=True)
+        step_ms = statistics.median(totals)
+        print(f"  {'step (median)':24s} {step_ms:10.4f} ms")
+        print(f"  steps 13-15 under torch.profiler: device {device_ms:.4f} ms a step, "
+              f"profiled wall {wall_ms:.4f} ms a step")
+        print(f"  busy share: device ms a step / median step = {device_ms / step_ms:.4f}",
+              flush=True)
     return 0
 
 

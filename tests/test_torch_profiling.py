@@ -1,6 +1,6 @@
 """The per-stage step timer (utils/profiling.py) on the CPU: it marks every
 stage of the step, leaves the step's result unchanged and restores the
-functions it wrapped."""
+functions it wrapped; its ``hooked`` does the same for any function."""
 
 import pytest
 import torch
@@ -35,6 +35,24 @@ def test_stage_times_marks_every_stage_and_keeps_the_step():
     after = [getattr(m, a) for m, a in ((step3d, "build_csr"), (levelset, "sweep_closest"),
                                         (project, "sor_pressure"))]
     assert after == before
+
+
+def test_hooked_sees_every_demo_step_and_restores(tmp_path):
+    from fluidsimulation_tpu_torch.app import demo
+
+    before = (demo.step, demo.check_state)
+    calls = []
+
+    def around(label, orig, args):
+        calls.append(label)
+        return orig(*args)
+
+    sites = [("app.demo", "step", "step"), ("app.demo", "check_state", "check")]
+    with profiling.hooked(sites, around):
+        rc = demo.main(["--grid", str(N), "--steps", "3", "--device", "cpu", "--out", str(tmp_path)])
+    assert rc == 0
+    assert calls == ["step", "check", "step", "step"]
+    assert (demo.step, demo.check_state) == before
 
 
 def test_profiling_main_refuses_without_card():
