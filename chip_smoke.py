@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the five hand-written CUDA kernels from csrc/, compares each with
+It builds the six hand-written CUDA kernels from csrc/, compares each with
 its plain PyTorch version on the card, and drives three paths of the port,
 each with the launch counts set to 0 just before it and read just after:
 
@@ -17,9 +17,12 @@ each with the launch counts set to 0 just before it and read just after:
     particles, dt = 1/120, 10 steps.
 
 Every step of every path must launch each kernel the expected number of
-times. A 32^3 card step is compared with the same step on the CPU. Any
-failure raises, and then the last line is not printed. Without a CUDA card
-it exits non-zero at once.
+times; the combined-key pack, which no step calls, 0 times. On the final
+states of the first two paths it then drives the combined-key interpolation
+(core/interp_combined.py): the pack kernel, the interpolation of every
+particle through its table, and RK3 stages 2-3 through it. A 32^3 card step
+is compared with the same step on the CPU. Any failure raises, and then the
+last line is not printed. Without a CUDA card it exits non-zero at once.
 
 Phases, each printing before the next:
   0  card name and power limit; TF32 off
@@ -31,7 +34,12 @@ Phases, each printing before the next:
   4  the 32^3 card step of phase 2 vs the same step on the CPU
   5  the demo at its defaults; launches per step; checkpoint reload
   6  10 steps of 128^3 / ppc 2; median step time, peak device memory
-  7  {"kernels": [...]} and then {"ok": true, "device": {...}}
+  7  combined-key interpolation, on the final state of phase 3 (128^3,
+     after phase 3's kernel checks; its times reported) and of phase 5
+     (64^3 ppc 2; times printed only): the pack's launch count, the pack vs
+     its plain form bit for bit, the interpolation vs the pointwise one,
+     RK3 vs advect_rk3_cached
+  8  {"kernels": [...]} and then {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -159,19 +167,21 @@ def kernel_table():
 
 def per_step_launches() -> dict:
     """Kernel module -> launches in one step, on every path."""
+    from fluidsimulation_tpu_torch.core import cuda_pack
     from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep
 
     return {cuda_seed: 1, cuda_sweep: len(cuda_sweep.SWEEP_ORDER), cuda_p2g: 1, cuda_sor: 1,
-            cuda_g2p: 1}
+            cuda_g2p: 1, cuda_pack: 0}
 
 
 class LaunchCheck:
     """Counts set to 0 when a path starts; each step must launch each
-    kernel its expected number of times; ``totals`` read when it ends."""
+    kernel its expected number of times (``expect``, by default a step's);
+    ``totals`` read when it ends."""
 
-    def __init__(self, label: str):
+    def __init__(self, label: str, expect: dict | None = None):
         self.label = label
-        self.expect = per_step_launches()
+        self.expect = per_step_launches() if expect is None else expect
         for module in self.expect:
             module.KERNEL.launches = 0
         self.steps = 0
@@ -189,9 +199,9 @@ class LaunchCheck:
 
     def totals(self) -> dict:
         out = {m.KERNEL.symbol: m.KERNEL.launches for m in self.expect}
-        for symbol, n in out.items():
-            if n == 0:
-                raise AssertionError(f"{self.label}: {symbol} was never launched")
+        for m, per_step in self.expect.items():
+            if per_step and out[m.KERNEL.symbol] == 0:
+                raise AssertionError(f"{self.label}: {m.KERNEL.symbol} was never launched")
         say(f"{self.label}: launches in {self.steps} steps: "
             + ", ".join(f"{k}={v}" for k, v in out.items()))
         return out
@@ -209,7 +219,9 @@ def bound(key: str, args) -> tuple[float, str]:
       G2P: 6 trilinear gathers of 7 lerps (126), 6 axis splits with clamps
         (33), scaling and the FLIP blend (9): 168 a particle;
       SOR: 6 neighbour subtractions, b - nms, two products, a division and
-        a sum, 11 per fluid cell per iteration (this run's fluid cells).
+        a sum, 11 per fluid cell per iteration (this run's fluid cells);
+      the combined pack: copies, no operations; it reads the three grids
+        and writes the (nx*ny*(nz-1), 64) table.
     """
     cfg = args[0]
     cells = cfg.nx * cfg.ny * cfg.nz
@@ -227,6 +239,8 @@ def bound(key: str, args) -> tuple[float, str]:
     elif key == "sor":
         fluid = int((args[1] < 0).sum())
         nbytes, ops = 4 * 4 * cells, 11 * fluid * cfg.sor_iterations
+    elif key == "pack":
+        nbytes, ops = 4 * faces + 4 * 64 * cfg.nx * cfg.ny * (cfg.nz - 1), 0
     else:
         raise KeyError(key)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
@@ -336,9 +350,117 @@ def check_finite(label: str, state) -> None:
             raise AssertionError(f"{label}: non-finite values in {name}")
 
 
+def advect_through_table(cfg, tab, state, dt):
+    """advect_rk3_cached with RK3 stages 2-3 interpolating through the
+    combined table; stage 1 is the state's carried k1."""
+    from fluidsimulation_tpu_torch.core.interp_combined import interp_mac3_combined_vec
+    from fluidsimulation_tpu_torch.ops.advect import advect_rk3_cached
+    from fluidsimulation_tpu_torch.utils.profiling import hooked
+
+    stages = []
+
+    def through_table(label, orig, args):
+        stages.append(label)
+        return interp_mac3_combined_vec(tab, (cfg.nx, cfg.ny, cfg.nz), args[3])
+
+    with hooked([("ops.advect", "interp_mac3_vec", "interp")], through_table):
+        out = advect_rk3_cached(cfg, state.u, state.v, state.w, state.k1, state.pos, dt)
+    if len(stages) != 2:
+        raise AssertionError(f"RK3 through the table: {len(stages)} stages interpolated, expected 2")
+    return out
+
+
+def run_combined(label, cfg, state, dt, results, card, report) -> int:
+    """Phase 7: the combined-key interpolation on a path's final state.
+
+    With every count at 0: pack the grids (one kernel launch), interpolate
+    every particle through the table and run RK3 stages 2-3 through it.
+    Then hold the table against the plain form bit for bit, the
+    interpolation against the pointwise interp_mac3_vec within 2e-6 x
+    max(1, largest |face value|) (the JAX test's 2e-6, scaled to the
+    state's velocities), and the positions against advect_rk3_cached within
+    1e-6 m x the same scale: a one-ulp difference in stage 2 moves the
+    stage-3 query by an ulp, and a steep field turns that into a velocity
+    difference past the interpolation's own (PERF.md, section 6). Then time
+    the pack, its plain form, the torch.stack yardstick and both
+    interpolations; the pack's times go to the report if ``report``.
+    Returns the pack's launches in the drive."""
+    from fluidsimulation_tpu_torch.core import cuda_pack
+    from fluidsimulation_tpu_torch.core.interp import interp_mac3_vec
+    from fluidsimulation_tpu_torch.core.interp_combined import (
+        interp_mac3_combined_vec,
+        pack_mac3_combined,
+    )
+    from fluidsimulation_tpu_torch.ops.advect import advect_rk3_cached
+    from fluidsimulation_tpu_torch.ops.common import cell_scale
+
+    if state.k1 is None:
+        raise AssertionError(f"phase 7 [{label}]: the state carries no k1")
+    u, v, w, dims = state.u, state.v, state.w, (cfg.nx, cfg.ny, cfg.nz)
+    pc = state.pos * cell_scale(cfg, state.pos.device)
+    check = LaunchCheck(f"phase 7 ({label})",
+                        {m: int(m is cuda_pack) for m in per_step_launches()})
+
+    def drive():
+        tab = pack_mac3_combined(u, v, w)
+        return tab, interp_mac3_combined_vec(tab, dims, pc), advect_through_table(cfg, tab, state, dt)
+
+    tab, vel, newpos = check.step(drive)
+    torch.cuda.synchronize()
+    launches = check.totals()[cuda_pack.KERNEL.symbol]
+
+    plain = cuda_pack.pack_mac3_combined_plain(u, v, w)
+    pack_err = float((tab - plain).abs().max())
+    scale = max(1.0, *(float(g.abs().max()) for g in (u, v, w)))
+    interp_err = float((vel - interp_mac3_vec(u, v, w, pc)).abs().max())
+    pos_diff = (newpos - advect_rk3_cached(cfg, u, v, w, state.k1, state.pos, dt)).abs()
+    pos_err = float(pos_diff.max())
+    b_ms, b_by = bound("pack", (cfg,))
+    say(f"phase 7 [{label}]: pack {tuple(tab.shape)} ({tab.numel() * 4} B) max abs err "
+        f"{pack_err!r}, bound {b_ms!r} ms ({b_by}); {pc.shape[0]} particles, largest |face| "
+        f"{scale!r}: combined vs pointwise interpolation max abs diff {interp_err!r} (limit "
+        f"{2e-6 * scale!r}); RK3 stages 2-3 through the table vs advect_rk3_cached "
+        f"{pos_err!r} m (limit {1e-6 * scale!r}; {int((pos_diff > 1e-6).sum())} coordinates "
+        f"past 1e-6 m)")
+    if not torch.equal(tab, plain):
+        raise AssertionError(f"phase 7 [{label}]: pack not bit-exact (max abs err {pack_err})")
+    if interp_err > 2e-6 * scale:
+        raise AssertionError(f"phase 7 [{label}]: combined vs pointwise interpolation differ by "
+                             f"{interp_err} > 2e-6 x {scale}")
+    if pos_err > 1e-6 * scale:
+        raise AssertionError(f"phase 7 [{label}]: RK3 through the table differs by {pos_err} m "
+                             f"> 1e-6 x {scale}")
+    entry = results.setdefault("pack", {"max_abs_err": 0.0})
+    entry["max_abs_err"] = max(entry["max_abs_err"], pack_err)
+    views = cuda_pack.shifted_views(u, v, w)
+    ms = cuda_ms(lambda: pack_mac3_combined(u, v, w), 20)
+    plain_ms = cuda_ms(lambda: cuda_pack.pack_mac3_combined_plain(u, v, w), 10)
+    # The yardstick: one torch.stack of the 51 shifted views (of grids padded
+    # before timing) along a new last axis makes the table's 51 data lanes;
+    # the 13 zero lanes are left out. The port never calls it.
+    library_ms = cuda_ms(lambda: torch.stack(views, dim=-1), 10)
+    # What the card's own fill reaches on the table's bytes: a store-rate
+    # ceiling for the pack (printed, not a bound).
+    scratch = torch.empty_like(tab)
+    fill_ms = cuda_ms(scratch.zero_, 20)
+    del scratch
+    combined_ms = cuda_ms(lambda: interp_mac3_combined_vec(tab, dims, pc), 10)
+    pointwise_ms = cuda_ms(lambda: interp_mac3_vec(u, v, w, pc), 10)
+    if report:
+        entry.update(launches=launches, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=library_ms)
+    say(f"phase 7 [{label}]: pack kernel {ms!r} ms, plain {plain_ms!r} ms, torch.stack of the "
+        f"51 views {library_ms!r} ms, zero-fill of a table {fill_ms!r} ms, bound {b_ms!r} ms; "
+        f"interpolation of {pc.shape[0]} "
+        f"particles: combined (table given) {combined_ms!r} ms, pointwise {pointwise_ms!r} ms "
+        f"on {card}")
+    return launches
+
+
 def run_demo(table, results, card):
     """Phase 5: app.demo.main at its defaults, every step through the
-    launch check; then the kernels on the last step's inputs."""
+    launch check; then the kernels on the last step's inputs and phase 7
+    on the final state."""
     from fluidsimulation_tpu_torch.app import demo
     from fluidsimulation_tpu_torch.utils.checkpoint import load_state
     from fluidsimulation_tpu_torch.utils.profiling import hooked
@@ -364,7 +486,7 @@ def run_demo(table, results, card):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-        seen["state"], seen["cfg"] = out, cfg
+        seen["state"], seen["cfg"], seen["dt"] = out, cfg, dt
         return out
 
     def recorded_check(orig_check, state):
@@ -405,7 +527,9 @@ def run_demo(table, results, card):
         f"on {card}")
     check_kernels(table, ("seed", "sweep", "p2g2", "sor", "g2p"), captured,
                   f"{cfg.nx}^3 ppc 2", results, timed=("p2g2",))
-    return launches, step_ms
+    combined_launches = run_combined(f"{cfg.nx}^3 ppc 2", cfg, state, seen["dt"], results,
+                                     card, report=False)
+    return launches, step_ms, combined_launches
 
 
 def run_physical(table, results, card):
@@ -509,9 +633,14 @@ def main() -> int:
     say(f"phase 3: median step {step_ms!r} ms over {len(times)} steps after {N_WARMUP} warm-up "
         f"(min {min(times)!r}, max {max(times)!r}) on {card}")
 
-    # Phase 2 at 128^3, on the inputs of the last main-path step.
+    # Phase 2 at 128^3, on the inputs of the last main-path step; phase 7
+    # on its final state.
     check_kernels(table, ppc1_keys, captured_big, f"{MAIN_N}^3", results, timed=ppc1_keys)
-    del state, captured_big
+    del captured_big
+    combined_launches = run_combined(f"{MAIN_N}^3 ppc 1", cfg, state, DT, results, card,
+                                     report=True)
+    del state
+    torch.cuda.empty_cache()
 
     # Phase 4: the 32^3 card step vs the same step on the CPU.
     cpu_next = ft.step(cpu_state, DT, small)
@@ -525,10 +654,10 @@ def main() -> int:
     say(f"phase 4: all fields within 1e-4 (max {worst!r})")
 
     # Phase 5: the demo entry point; phase 6: the physical configuration.
-    demo_launches, demo_ms = run_demo(table, results, card)
+    demo_launches, demo_ms, demo_combined_launches = run_demo(table, results, card)
     phys_launches, phys_ms, phys_peak = run_physical(table, results, card)
 
-    # Phase 7.
+    # Phase 8.
     symbol = {key: k["module"].KERNEL.symbol for key, k in table.items()}
     kernels = [
         {
@@ -542,11 +671,20 @@ def main() -> int:
         }
         for key, k in table.items()
     ]
+    kernels.append({
+        "name": "pack_mac3_combined", "route": "cuda",
+        "source": "fluidsimulation_tpu_torch/csrc/pack.cu",
+        "replaces": "fluidsimulation_tpu/core/pallas_pack.py:32",
+        **{key: results["pack"][key] for key in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    })
     say(json.dumps({
         "kernels": kernels, "card": card,
         "step_ms": {"128^3 ppc 1": step_ms, "demo 64^3 ppc 2": demo_ms, "128^3 ppc 2": phys_ms},
         "launches": {"128^3 ppc 1": launches, "demo 64^3 ppc 2": demo_launches,
-                     "128^3 ppc 2": phys_launches},
+                     "128^3 ppc 2": phys_launches,
+                     "combined 128^3 ppc 1": combined_launches,
+                     "combined 64^3 ppc 2": demo_combined_launches},
         "peak_bytes_128^3_ppc2": phys_peak,
     }))
     say(json.dumps({

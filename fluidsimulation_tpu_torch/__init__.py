@@ -3,8 +3,9 @@
 The 3D PIC/FLIP step on an NVIDIA H100. The layout follows the JAX package,
 module for module and name for name:
 
-  core/    config, minstd seeding, state (a dataclass of tensors), MAC interpolation
-  ops/     the op set; ops/cuda_*.py wrap the hand-written kernels in csrc/
+  core/    config, minstd seeding, state (a dataclass of tensors), MAC interpolation,
+           the combined-key table (core/cuda_pack.py wraps its kernel in csrc/)
+  ops/     the op set; ops/cuda_*.py wrap the other hand-written kernels in csrc/
   solver/  step(), step_guarded(), simulate()
   utils/   Meter, velocity_guard, check_state; npz checkpoints
   app/     the demo CLI (python -m fluidsimulation_tpu_torch)

@@ -9,7 +9,8 @@ Inputs are made on the CPU at 32^3 and carried to the card. The seed and
 sweep kernels and the SOR are compiled with -fmad=false and must match bit
 for bit; the P2G kernel sums in another order than index_add_ (validity
 equal, rtol = atol = 2e-4 on valid faces), at ppc 1 and at ppc 2; the G2P
-kernel within 1e-5 abs.
+kernel within 1e-5 abs. The combined-key pack (pure copies) must equal its
+plain version bit for bit at small odd shapes and at 64^3.
 """
 
 import numpy as np
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 import fluidsimulation_tpu_torch as ft
+from fluidsimulation_tpu_torch.core import cuda_pack
 from fluidsimulation_tpu_torch.core.seeding import noise_grids
 from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep
 from fluidsimulation_tpu_torch.ops.binning import build_csr
@@ -130,6 +132,31 @@ def test_wrappers_reject_bad_arguments(dev):
         cuda_sor.sor_pressure(CFG, phi, phi, torch.zeros((N, N, N)))
     with pytest.raises(ValueError, match="shape"):
         cuda_sor.sor_pressure(CFG, phi, phi, torch.zeros((N, N, N + 1), device=dev))
+
+
+def _mac_grids(dev, shape, seed=0):
+    nx, ny, nz = shape
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+            for s in ((nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1))]
+
+
+@pytest.mark.parametrize("shape", [(12, 8, 16), (13, 9, 17), (64, 64, 64)])
+def test_pack_kernel_bit_exact(dev, shape):
+    grids = _mac_grids(dev, shape, seed=sum(shape))
+    tab, n = _counted(cuda_pack, cuda_pack.pack_mac3_combined, *grids)
+    assert n == 1
+    assert torch.equal(tab, cuda_pack.pack_mac3_combined_plain(*grids))
+
+
+def test_pack_wrapper_rejects_bad_arguments(dev):
+    u, v, w = _mac_grids(dev, (12, 8, 16))
+    with pytest.raises(ValueError, match="float32"):
+        cuda_pack.pack_mac3_combined(u.double(), v, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_pack.pack_mac3_combined(u, v, w.permute(2, 1, 0).contiguous().permute(2, 1, 0))
+    with pytest.raises(ValueError, match="devices"):
+        cuda_pack.pack_mac3_combined(u, v.cpu(), w)
 
 
 def test_step_on_card_matches_cpu(dev):
