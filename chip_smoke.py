@@ -17,7 +17,8 @@ each with the launch counts set to 0 just before it and read just after:
     particles, dt = 1/120, 10 steps.
 
 Every step of every path must launch each kernel the expected number of
-times; the combined-key pack, which no step calls, 0 times. On the final
+times (the 24 sweeps are one C call, one launch count); the combined-key
+pack, which no step calls, 0 times. On the final
 states of the first two paths it then drives the combined-key interpolation
 (core/interp_combined.py): the pack kernel, the interpolation of every
 particle through its table, and RK3 stages 2-3 through it. A 32^3 card step
@@ -29,7 +30,10 @@ Phases, each printing before the next:
   1  kernel build (seconds)
   2  kernels vs plain versions at 32^3 (here), at 128^3 (after phase 3),
      at 64^3/ppc 2 (after phase 5) and at 128^3/ppc 2 (after phase 6), on
-     the inputs each kernel received in the last step of the path
+     the inputs each kernel received in the last step of the path; at the
+     last three, the sweeps and the SOR timed, the sweeps of each axis
+     timed alone, the SOR's fluid cells per colour, grid barriers and the
+     cost of one barrier
   3  20 steps at 128^3; launch counts per step; median step time
   4  the 32^3 card step of phase 2 vs the same step on the CPU
   5  the demo at its defaults; launches per step; checkpoint reload
@@ -44,6 +48,7 @@ Phases, each printing before the next:
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -170,8 +175,7 @@ def per_step_launches() -> dict:
     from fluidsimulation_tpu_torch.core import cuda_pack
     from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep
 
-    return {cuda_seed: 1, cuda_sweep: len(cuda_sweep.SWEEP_ORDER), cuda_p2g: 1, cuda_sor: 1,
-            cuda_g2p: 1, cuda_pack: 0}
+    return {cuda_seed: 1, cuda_sweep: 1, cuda_p2g: 1, cuda_sor: 1, cuda_g2p: 1, cuda_pack: 0}
 
 
 class LaunchCheck:
@@ -250,16 +254,17 @@ def bound(key: str, args) -> tuple[float, str]:
 def compare(key: str, got, want) -> tuple[float, str]:
     """Hold a kernel's outputs against its plain version's. Returns the
     largest absolute difference and a note; raises past the tolerance."""
-    if key == "sor":
-        # -fmad=false and IEEE division, the plain version's operation
+    if key in ("sor", "sweep"):
+        # -fmad=false, IEEE sqrt and division, the plain version's operation
         # order: bit for bit.
-        err = float((got - want).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"sor: not bit-exact (max abs err {err})")
+        pairs = [(got, want)] if key == "sor" else list(zip(got, want))
+        err = max(float((g - w).abs().max()) for g, w in pairs)
+        if not all(torch.equal(g, w) for g, w in pairs):
+            raise AssertionError(f"{key}: not bit-exact (max abs err {err})")
         return err, "bit-exact"
-    if key in ("seed", "sweep"):
+    if key == "seed":
         # Expected bit-exact (-fmad=false); the bound is the JAX package's
-        # own Pallas-vs-XLA bound for these passes.
+        # own Pallas-vs-XLA bound for this pass.
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         exact = all(torch.equal(g, w) for g, w in zip(got, want))
         if err > 2e-6:
@@ -293,11 +298,11 @@ def compare(key: str, got, want) -> tuple[float, str]:
 
 
 def check_kernels(table, keys, captured, label: str, results: dict, timed=(),
-                  report_times=True) -> None:
+                  reported=()) -> None:
     """Compare each kernel in ``keys`` with its plain version on the
     captured inputs and print its bound there; time the kernels in
-    ``timed``. Their times and bounds go to the report unless
-    ``report_times`` is false. Every error goes to the report's maximum."""
+    ``timed``. The times and bounds of those in ``reported`` go to the
+    report. Every error goes to the report's maximum."""
     for key in keys:
         k = table[key]
         args = captured[k["site"]]
@@ -314,10 +319,44 @@ def check_kernels(table, keys, captured, label: str, results: dict, timed=(),
             reps_plain = 2 if key == "sweep" else 10
             ms = cuda_ms(lambda: k["wrapper"](*args), 20)
             plain_ms = cuda_ms(lambda: k["plain"](*args), reps_plain)
-            if report_times:
+            if key in reported:
                 entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
             line += f"; kernel {ms!r} ms, plain {plain_ms!r} ms"
         say(line)
+
+
+def sweep_sor_details(captured, label: str, card: str) -> None:
+    """Phase 2, beside the sweeps' and the SOR's checks on a path's inputs:
+    the sweeps of each axis timed alone (its 8 codes in SWEEP_ORDER's
+    order, one C call); the SOR kernel's counters (fluid cells of each
+    colour, grid barriers run), held against the level set; and the cost of
+    one grid barrier: the solve on an all-air level set (no cell to update,
+    so the list build and the barriers) less the same with 0 iterations,
+    over the barriers."""
+    from fluidsimulation_tpu_torch.ops import cuda_sor, cuda_sweep
+
+    cfg, phi, cpos = captured["sweep"]
+    by_axis = []
+    for axis, name in enumerate("xyz"):
+        codes = [c for c in cuda_sweep.SWEEP_ORDER if cuda_sweep.CODE[c][0] == axis]
+        ms = cuda_ms(lambda c=codes: cuda_sweep.sweeps(cfg, phi, cpos, c), 20)
+        by_axis.append(f"{len(codes)} {name}-sweeps {ms!r} ms")
+    say(f"phase 2 [{label}] sweeps by axis: " + ", ".join(by_axis) + f" on {card}")
+
+    cfg, phi, diag, b = captured["sor"]
+    _, counters = cuda_sor.sor_launch(cfg, phi, diag, b)
+    n0, n1, barriers = counters.tolist()
+    fluid = int((phi < 0).sum())
+    if n0 + n1 != fluid or barriers != 2 * cfg.sor_iterations - 1:
+        raise AssertionError(f"sor [{label}]: counters {counters.tolist()}, expected {fluid} fluid "
+                             f"cells and {2 * cfg.sor_iterations - 1} barriers")
+    air = torch.ones_like(phi)
+    none = dataclasses.replace(cfg, sor_iterations=0)
+    air_ms = cuda_ms(lambda: cuda_sor.sor_launch(cfg, air, diag, b), 20)
+    prologue_ms = cuda_ms(lambda: cuda_sor.sor_launch(none, air, diag, b), 20)
+    say(f"phase 2 [{label}] sor: fluid cells {n0} of colour 0, {n1} of colour 1; {barriers} grid "
+        f"barriers; all-air solve {air_ms!r} ms, its prologue {prologue_ms!r} ms, so "
+        f"{1e3 * (air_ms - prologue_ms) / barriers!r} us a barrier on {card}")
 
 
 def timed_steps(check, n_steps, state, dt, cfg, captured):
@@ -526,7 +565,8 @@ def run_demo(table, results, card):
         f"{N_WARMUP} warm-up (min {min(times[N_WARMUP:])!r}, max {max(times[N_WARMUP:])!r}) "
         f"on {card}")
     check_kernels(table, ("seed", "sweep", "p2g2", "sor", "g2p"), captured,
-                  f"{cfg.nx}^3 ppc 2", results, timed=("p2g2",))
+                  f"{cfg.nx}^3 ppc 2", results, timed=("sweep", "p2g2", "sor"), reported=("p2g2",))
+    sweep_sor_details(captured, f"{cfg.nx}^3 ppc 2", card)
     combined_launches = run_combined(f"{cfg.nx}^3 ppc 2", cfg, state, seen["dt"], results,
                                      card, report=False)
     return launches, step_ms, combined_launches
@@ -534,9 +574,9 @@ def run_demo(table, results, card):
 
 def run_physical(table, results, card):
     """Phase 6: the physical configuration, 10 steps; then the kernels on
-    the last step's inputs, P2G and the SOR timed (printed, not reported:
-    the report's times are those at 128^3 ppc 1 and, for P2G at ppc 2, the
-    demo's)."""
+    the last step's inputs, the sweeps, P2G and the SOR timed (printed, not
+    reported: the report's times are those at 128^3 ppc 1 and, for P2G at
+    ppc 2, the demo's)."""
     import fluidsimulation_tpu_torch as ft
 
     cfg = ft.SimConfig(nx=PHYS_N, ny=PHYS_N, nz=PHYS_N, cells_per_meter=float(PHYS_N),
@@ -559,7 +599,8 @@ def run_physical(table, results, card):
         f"{N_WARMUP} warm-up (min {min(times)!r}, max {max(times)!r}); peak device memory "
         f"{peak} B ({peak / 2**30:.3f} GiB) on {card}")
     check_kernels(table, ("seed", "sweep", "p2g2", "sor", "g2p"), captured,
-                  f"{PHYS_N}^3 ppc 2", results, timed=("p2g2", "sor"), report_times=False)
+                  f"{PHYS_N}^3 ppc 2", results, timed=("sweep", "p2g2", "sor"))
+    sweep_sor_details(captured, f"{PHYS_N}^3 ppc 2", card)
     return launches, step_ms, peak
 
 
@@ -635,7 +676,9 @@ def main() -> int:
 
     # Phase 2 at 128^3, on the inputs of the last main-path step; phase 7
     # on its final state.
-    check_kernels(table, ppc1_keys, captured_big, f"{MAIN_N}^3", results, timed=ppc1_keys)
+    check_kernels(table, ppc1_keys, captured_big, f"{MAIN_N}^3", results, timed=ppc1_keys,
+                  reported=ppc1_keys)
+    sweep_sor_details(captured_big, f"{MAIN_N}^3", card)
     del captured_big
     combined_launches = run_combined(f"{MAIN_N}^3 ppc 1", cfg, state, DT, results, card,
                                      report=True)

@@ -124,6 +124,7 @@ def load_library() -> ctypes.CDLL:
 
 P = ctypes.c_void_p  # device pointer or stream
 I = ctypes.c_int
+INTS = ctypes.POINTER(ctypes.c_int)  # host array of ints
 L = ctypes.c_longlong
 F = ctypes.c_float
 

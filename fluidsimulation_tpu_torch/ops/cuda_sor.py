@@ -7,8 +7,9 @@ fits VMEM; on the card the kernel is the solve at every grid size. Both
 forms start from p = 0 and run ``cfg.sor_iterations`` iterations of colour
 0 then colour 1, the red-black order that makes each masked half-update
 exact Gauss-Seidel (ops/project.py:74-123 of the JAX package). A CPU tensor
-takes the plain version; a CUDA tensor launches the kernel, one launch per
-solve.
+takes the plain version; a CUDA tensor launches the kernel, one C call a
+solve: a list-building launch, then one cooperative launch that runs every
+half-update with a grid barrier between them.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from .common import shift
 
 KERNEL = _build.Kernel(
     "fst_sor",
-    [_build.P] * 5 + [_build.I] * 4 + [_build.F, _build.F],
+    [_build.P] * 7 + [_build.I] * 4 + [_build.F, _build.F],
 )
 
 
@@ -69,14 +70,27 @@ def sor_pressure(cfg: SimConfig, phi, diag, b):
     phi, diag, b: (nx, ny, nz) float32. Returns p (nx, ny, nz)."""
     if phi.device.type == "cpu":
         return sor_pressure_plain(cfg, phi, diag, b)
-    shape = cfg.grid_shape()
+    return sor_launch(cfg, phi, diag, b)[0]
+
+
+def sor_launch(cfg: SimConfig, phi, diag, b):
+    """The kernel's solve (CUDA tensors only). Returns p and the kernel's
+    int32 counters: the fluid cells of colour 0 and of colour 1, and the
+    grid barriers it ran (2 x iterations - 1)."""
+    nx, ny, nz = shape = cfg.grid_shape()
+    half = nx * ny * ((nz + 1) // 2)  # room for every cell of one colour
+    if 2 * half >= 2**31:
+        raise ValueError(f"grid {shape}: the SOR kernel indexes cells with 32-bit ints")
     dev = _build.same_device(phi, diag, b)
     args = [_build.check(t, name, shape) for t, name in ((phi, "phi"), (diag, "diag"), (b, "b"))]
     p = torch.empty(shape, dtype=torch.float32, device=dev)
-    mask = torch.empty(shape, dtype=torch.uint8, device=dev)
+    # Scratch: a list of 16 B records per colour, and p split by colour.
+    lists = torch.empty((2, half, 4), dtype=torch.int32, device=dev)
+    split = torch.empty((2, half), dtype=torch.float32, device=dev)
+    counters = torch.empty(3, dtype=torch.int32, device=dev)
     omega, one_minus_omega = relaxation(cfg)
     KERNEL.launch(
-        dev, *args, p.data_ptr(), mask.data_ptr(), *shape,
-        cfg.sor_iterations, float(omega), float(one_minus_omega),
+        dev, *args, p.data_ptr(), lists.data_ptr(), split.data_ptr(), counters.data_ptr(),
+        *shape, cfg.sor_iterations, float(omega), float(one_minus_omega),
     )
-    return p
+    return p, counters

@@ -1,5 +1,6 @@
 """The 24 directional fast sweeps of the level set: the CUDA kernel
-(csrc/sweep.cu, one launch per sweep) and its plain PyTorch version.
+(csrc/sweep.cu: one C call runs a list of sweeps, one launch a sweep on the
+stream) and its plain PyTorch version.
 
 Replaces fluidsimulation_tpu/ops/pallas_sweep.py (_sweep_kernel via
 _sweep_major and sweep_closest_pallas). A CPU tensor takes the plain
@@ -7,6 +8,8 @@ version; a CUDA tensor launches the kernel.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -31,9 +34,9 @@ SWEEP_ORDER = [
 CODE = {0: (0, False), 1: (0, True), 2: (1, False), 3: (1, True), 4: (2, False), 5: (2, True)}
 
 KERNEL = _build.Kernel(
-    "fst_sweep",
+    "fst_sweeps",
     [_build.P, _build.P, _build.P, _build.P,
-     _build.I, _build.I, _build.I, _build.I, _build.I, _build.F],
+     _build.I, _build.I, _build.I, _build.F, _build.INTS, _build.I],
 )
 
 
@@ -54,37 +57,45 @@ def _sweep_axis_plain(phi, cpos, centers, r, axis: int, reverse: bool):
         cp.copy_(carry)
 
 
-def sweep_closest_plain(cfg: SimConfig, phi, cpos):
+def sweeps_plain(cfg: SimConfig, phi, cpos, codes):
     r = cfg.particle_radius
     axes = [torch.arange(n, dtype=torch.float32, device=phi.device) for n in phi.shape]
     centers = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
     phi, cpos = phi.clone(), cpos.clone()
-    for code in SWEEP_ORDER:
+    for code in codes:
         axis, reverse = CODE[code]
         _sweep_axis_plain(phi, cpos, centers, r, axis, reverse)
     return phi, cpos
 
 
-def sweep_closest(cfg: SimConfig, phi, cpos):
-    """Run the 24 directional sweeps in the reference order.
+def sweep_closest_plain(cfg: SimConfig, phi, cpos):
+    return sweeps_plain(cfg, phi, cpos, SWEEP_ORDER)
+
+
+def sweeps(cfg: SimConfig, phi, cpos, codes):
+    """Run the sweeps of ``codes`` (keys of CODE) in order: one C call, one
+    count. ``sweep_closest`` runs SWEEP_ORDER; a sub-list times one axis.
 
     phi: (nx, ny, nz); cpos: (nx, ny, nz, 3) candidates in cell units.
     Returns the swept (phi, cpos); the inputs are not modified."""
+    codes = list(codes)
+    if not codes or any(c not in CODE for c in codes):
+        raise ValueError(f"codes: expected a non-empty list of sweep codes 0-5, got {codes}")
     if phi.device.type == "cpu":
-        return sweep_closest_plain(cfg, phi, cpos)
+        return sweeps_plain(cfg, phi, cpos, codes)
     nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
     dev = _build.same_device(phi, cpos)
     src_phi = _build.check(phi, "phi", (nx, ny, nz))
     src_cpos = _build.check(cpos, "cpos", (nx, ny, nz, 3))
     phi_out = torch.empty_like(phi)
     cpos_out = torch.empty_like(cpos)
-    r = float(cfg.particle_radius)
-    for code in SWEEP_ORDER:
-        axis, reverse = CODE[code]
-        # The first sweep reads the inputs; the rest work in place.
-        KERNEL.launch(
-            dev, src_phi, src_cpos, phi_out.data_ptr(), cpos_out.data_ptr(),
-            nx, ny, nz, axis, int(reverse), r,
-        )
-        src_phi, src_cpos = phi_out.data_ptr(), cpos_out.data_ptr()
+    KERNEL.launch(
+        dev, src_phi, src_cpos, phi_out.data_ptr(), cpos_out.data_ptr(),
+        nx, ny, nz, float(cfg.particle_radius), (ctypes.c_int * len(codes))(*codes), len(codes),
+    )
     return phi_out, cpos_out
+
+
+def sweep_closest(cfg: SimConfig, phi, cpos):
+    """Run the 24 directional sweeps in the reference order (see sweeps)."""
+    return sweeps(cfg, phi, cpos, SWEEP_ORDER)

@@ -94,8 +94,10 @@ def test_state_from_numpy_round_trip_bit_exact():
         "assert 'jax' not in sys.modules, 'chip_smoke imported jax'",
         "import sys, fluidsimulation_tpu_torch.app.demo, fluidsimulation_tpu_torch.utils.checkpoint; "
         "assert 'jax' not in sys.modules, 'demo imported jax'",
+        "import sys, fluidsimulation_tpu_torch.utils.kernel_times; "
+        "assert 'jax' not in sys.modules, 'kernel_times imported jax'",
     ],
-    ids=["package", "chip_smoke", "demo"],
+    ids=["package", "chip_smoke", "demo", "kernel_times"],
 )
 def test_port_imports_no_jax(code):
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)

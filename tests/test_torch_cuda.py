@@ -7,9 +7,12 @@ Marked ``cuda``: each test skips without a CUDA card. On a machine with one
 
 Inputs are made on the CPU at 32^3 and carried to the card. The seed and
 sweep kernels and the SOR are compiled with -fmad=false and must match bit
-for bit; the P2G kernel sums in another order than index_add_ (validity
-equal, rtol = atol = 2e-4 on valid faces), at ppc 1 and at ppc 2; the G2P
-kernel within 1e-5 abs. The combined-key pack (pure copies) must equal its
+for bit, also at shapes that break the sweep kernel's 32-line tiles and
+32-plane chunks and the SOR's colour-split layout (13x9x17, 20x12x24,
+8x8x200, whose z-lines are longer than six chunks, and 64^3); the P2G
+kernel sums in another order than index_add_ (validity equal, rtol = atol
+= 2e-4 on valid faces), at ppc 1 and at ppc 2; the G2P kernel within 1e-5
+abs. The combined-key pack (pure copies) must equal its
 plain version bit for bit at small odd shapes and at 64^3.
 """
 
@@ -63,7 +66,7 @@ def test_seed_and_sweep_kernels_bit_exact(dev):
     assert torch.equal(phi, want[0]) and torch.equal(cpos, want[1])
 
     (sphi, scpos), n = _counted(cuda_sweep, cuda_sweep.sweep_closest, CFG, phi, cpos)
-    assert n == len(cuda_sweep.SWEEP_ORDER)
+    assert n == 1  # one C call runs the 24 sweeps
     want = cuda_sweep.sweep_closest_plain(CFG, phi, cpos)
     assert torch.equal(sphi, want[0]) and torch.equal(scpos, want[1])
 
@@ -101,6 +104,66 @@ def test_sor_kernel_bit_exact(dev):
     assert torch.equal(p, want)
 
 
+SHAPES = [(13, 9, 17), (20, 12, 24), (8, 8, 200), (64, 64, 64)]
+
+
+def _shape_cfg(shape):
+    nx, ny, nz = shape
+    return ft.SimConfig(nx=nx, ny=ny, nz=nz, cells_per_meter=float(nx))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_sweep_kernel_bit_exact_at_shapes(dev, shape):
+    """Candidates in 30% of the cells, scattered over and past the grid,
+    FAR elsewhere; phi their distance minus r: the 24 sweeps in one launch,
+    and each axis's 8 alone, bit for bit the plain version."""
+    cfg = _shape_cfg(shape)
+    rng = np.random.default_rng(sum(shape))
+    cpos = rng.uniform(-2.0, max(shape) + 2.0, size=(*shape, 3)).astype(np.float32)
+    cpos[rng.random(shape) > 0.3] = 1.0e9
+    cpos = torch.from_numpy(cpos)
+    axes = [torch.arange(n, dtype=torch.float32) for n in shape]
+    centers = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+    phi = cuda_seed.dist(*cpos.unbind(-1), *centers.unbind(-1)) - cfg.particle_radius
+    phi, cpos = phi.to(dev), cpos.to(dev)
+    (sphi, scpos), n = _counted(cuda_sweep, cuda_sweep.sweep_closest, cfg, phi, cpos)
+    assert n == 1
+    want = cuda_sweep.sweep_closest_plain(cfg, phi, cpos)
+    assert torch.equal(sphi, want[0]) and torch.equal(scpos, want[1])
+    for axis in range(3):
+        codes = [c for c in cuda_sweep.SWEEP_ORDER if cuda_sweep.CODE[c][0] == axis]
+        got = cuda_sweep.sweeps(cfg, phi, cpos, codes)
+        want = cuda_sweep.sweeps_plain(cfg, phi, cpos, codes)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_sor_kernel_bit_exact_at_shapes(dev, shape):
+    """A noisy slab of fluid (about half the cells) with a noise RHS: one
+    launch, bit for bit the plain version; the kernel's counters hold each
+    colour's fluid cells and 2 x iterations - 1 grid barriers."""
+    cfg = _shape_cfg(shape)
+    rng = np.random.default_rng(sum(shape) + 1)
+    x = np.arange(shape[0], dtype=np.float32)[:, None, None]
+    phi = (x - shape[0] / 2 + rng.uniform(-2.0, 2.0, size=shape)).astype(np.float32)
+    phi = torch.from_numpy(phi).to(dev)
+    b = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    diag = compute_diag(cfg, phi)
+    p, n = _counted(cuda_sor, cuda_sor.sor_pressure, cfg, phi, diag, b)
+    assert n == 1
+    want = cuda_sor.sor_pressure_plain(cfg, phi, diag, b)
+    assert float(want.abs().max()) > 0.0
+    assert torch.equal(p, want)
+    p2, counters = cuda_sor.sor_launch(cfg, phi, diag, b)
+    assert torch.equal(p2, want)
+    fluid = phi < 0
+    parity = sum(torch.arange(k, device=dev).reshape([-1 if i == a else 1 for i in range(3)])
+                 for a, k in enumerate(shape)) % 2
+    assert counters.tolist() == [int((fluid & (parity == 0)).sum()),
+                                 int((fluid & (parity == 1)).sum()),
+                                 2 * cfg.sor_iterations - 1]
+
+
 def test_g2p_kernel_matches_plain(dev):
     pos, vel = _particles(dev)
     rng = np.random.default_rng(2)
@@ -128,6 +191,10 @@ def test_wrappers_reject_bad_arguments(dev):
     phi = torch.zeros((N, N, N), device=dev)
     with pytest.raises(ValueError, match="devices"):
         cuda_sweep.sweep_closest(CFG, phi, torch.zeros((N, N, N, 3)))
+    cpos = torch.zeros((N, N, N, 3), device=dev)
+    for codes in ([], [0, 6], [-1]):
+        with pytest.raises(ValueError, match="codes"):
+            cuda_sweep.sweeps(CFG, phi, cpos, codes)
     with pytest.raises(ValueError, match="devices"):
         cuda_sor.sor_pressure(CFG, phi, phi, torch.zeros((N, N, N)))
     with pytest.raises(ValueError, match="shape"):
