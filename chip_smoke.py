@@ -30,12 +30,14 @@ Phases, each printing before the next:
   1  kernel build (seconds)
   2  kernels vs plain versions at 32^3 (here), at 128^3 (after phase 3),
      at 64^3/ppc 2 (after phase 5) and at 128^3/ppc 2 (after phase 6), on
-     the inputs each kernel received in the last step of the path; at the
-     last three, the sweeps and the SOR timed, the sweeps of each axis
-     timed alone, the SOR's fluid cells per colour, grid barriers and the
-     cost of one barrier
+     the inputs each kernel received in the last step of the path; P2G
+     launched twice must give the same bits; at the last three, every
+     kernel timed, the sweeps of each axis timed alone, the SOR's fluid
+     cells per colour, grid barriers and the cost of one barrier
   3  20 steps at 128^3; launch counts per step; median step time
-  4  the 32^3 card step of phase 2 vs the same step on the CPU
+  4  the 32^3 card step of phase 2 vs the same step on the CPU; then the
+     NaN rule: a 32^3 state with one NaN position, two guarded steps on the
+     card (no raise, unhealthy, only that particle non-finite, grids finite)
   5  the demo at its defaults; launches per step; checkpoint reload
   6  10 steps of 128^3 / ppc 2; median step time, peak device memory
   7  combined-key interpolation, on the final state of phase 3 (128^3,
@@ -310,6 +312,12 @@ def check_kernels(table, keys, captured, label: str, results: dict, timed=(),
         want = k["plain"](*args)
         torch.cuda.synchronize()
         err, note = compare(key, got, want)
+        if key in ("p2g", "p2g2"):
+            # No atomics, a fixed order: a second launch gives the same bits.
+            again = k["wrapper"](*args)
+            if not all(torch.equal(a, b) for pa, pb in zip(got, again) for a, b in zip(pa, pb)):
+                raise AssertionError(f"{key} [{label}]: two launches on the same inputs differ")
+            note += "; two launches bit-equal"
         entry = results.setdefault(key, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         b_ms, b_by = bound(key, args)
@@ -496,6 +504,33 @@ def run_combined(label, cfg, state, dt, results, card, report) -> int:
     return launches
 
 
+def nan_phase(cfg, dev) -> None:
+    """Phase 4, the NaN rule on the card: one particle of the 32^3 dam break
+    gets a NaN position and step_guarded runs twice. Nothing may raise (a
+    device-side assert would end the run here), the state must be reported
+    unhealthy, exactly that particle non-finite, and u, v, w, phi finite."""
+    import fluidsimulation_tpu_torch as ft
+
+    bad = 5
+    state = ft.init_state(cfg, dev)
+    state.pos[bad, 0] = float("nan")
+    for i in range(2):
+        state, healthy = ft.step_guarded(state, DT, cfg)
+        torch.cuda.synchronize()
+        if bool(healthy):
+            raise AssertionError(f"phase 4 NaN step {i}: healthy is True")
+        for name in ("pos", "vel"):
+            rows = (~getattr(state, name).isfinite().all(1)).nonzero().flatten().tolist()
+            if rows != [bad]:
+                raise AssertionError(f"phase 4 NaN step {i}: non-finite {name} rows {rows[:10]}, "
+                                     f"expected [{bad}]")
+        for name in ("u", "v", "w", "phi"):
+            if not bool(getattr(state, name).isfinite().all()):
+                raise AssertionError(f"phase 4 NaN step {i}: non-finite values in {name}")
+    say(f"phase 4: NaN rule: particle {bad} of {state.pos.shape[0]} with a NaN position, two "
+        f"guarded steps on the card: no raise, healthy False, only it non-finite, u v w phi finite")
+
+
 def run_demo(table, results, card):
     """Phase 5: app.demo.main at its defaults, every step through the
     launch check; then the kernels on the last step's inputs and phase 7
@@ -565,7 +600,8 @@ def run_demo(table, results, card):
         f"{N_WARMUP} warm-up (min {min(times[N_WARMUP:])!r}, max {max(times[N_WARMUP:])!r}) "
         f"on {card}")
     check_kernels(table, ("seed", "sweep", "p2g2", "sor", "g2p"), captured,
-                  f"{cfg.nx}^3 ppc 2", results, timed=("sweep", "p2g2", "sor"), reported=("p2g2",))
+                  f"{cfg.nx}^3 ppc 2", results, timed=("seed", "sweep", "p2g2", "sor", "g2p"),
+                  reported=("p2g2",))
     sweep_sor_details(captured, f"{cfg.nx}^3 ppc 2", card)
     combined_launches = run_combined(f"{cfg.nx}^3 ppc 2", cfg, state, seen["dt"], results,
                                      card, report=False)
@@ -574,9 +610,8 @@ def run_demo(table, results, card):
 
 def run_physical(table, results, card):
     """Phase 6: the physical configuration, 10 steps; then the kernels on
-    the last step's inputs, the sweeps, P2G and the SOR timed (printed, not
-    reported: the report's times are those at 128^3 ppc 1 and, for P2G at
-    ppc 2, the demo's)."""
+    the last step's inputs, each timed (printed, not reported: the report's
+    times are those at 128^3 ppc 1 and, for P2G at ppc 2, the demo's)."""
     import fluidsimulation_tpu_torch as ft
 
     cfg = ft.SimConfig(nx=PHYS_N, ny=PHYS_N, nz=PHYS_N, cells_per_meter=float(PHYS_N),
@@ -599,7 +634,7 @@ def run_physical(table, results, card):
         f"{N_WARMUP} warm-up (min {min(times)!r}, max {max(times)!r}); peak device memory "
         f"{peak} B ({peak / 2**30:.3f} GiB) on {card}")
     check_kernels(table, ("seed", "sweep", "p2g2", "sor", "g2p"), captured,
-                  f"{PHYS_N}^3 ppc 2", results, timed=("sweep", "p2g2", "sor"))
+                  f"{PHYS_N}^3 ppc 2", results, timed=("seed", "sweep", "p2g2", "sor", "g2p"))
     sweep_sor_details(captured, f"{PHYS_N}^3 ppc 2", card)
     return launches, step_ms, peak
 
@@ -695,6 +730,7 @@ def main() -> int:
         worst = max(worst, d)
         say(f"phase 4: {SMALL_N}^3 step, card vs CPU, {name}: max abs diff {d!r}")
     say(f"phase 4: all fields within 1e-4 (max {worst!r})")
+    nan_phase(small, dev)
 
     # Phase 5: the demo entry point; phase 6: the physical configuration.
     demo_launches, demo_ms, demo_combined_launches = run_demo(table, results, card)

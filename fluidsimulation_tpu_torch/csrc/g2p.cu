@@ -22,7 +22,9 @@
 // the gathers mostly hit L2.
 // Design: one thread per particle, one pass in place of the pack plus two
 // packed gathers. Compiled with -fmad=false, so each lerp rounds like the
-// plain version's separate multiply and add.
+// plain version's separate multiply and add. A particle with a NaN
+// coordinate reads in-range cells and returns NaN for vel' and k1, as the
+// plain version does.
 #include "common.cuh"
 
 namespace {
@@ -32,18 +34,27 @@ struct Split {
   float f;
 };
 
+// The NaN rule (core/interp.py): fmaxf maps a NaN coordinate to the lower
+// bound, which keeps the index in range; the fraction takes the NaN back, as
+// the plain version's clamp keeps it, so every lerp of the particle is NaN.
+// A finite coordinate is untouched.
+__device__ __forceinline__ float keep_nan(float coord, float frac) {
+  return isnan(coord) ? coord : frac;
+}
+
 // Clamp to [0, m-1]; floor, but at most m-2 (Simulation3D.h:61,70).
 __device__ __forceinline__ Split split_normal(float coord, int m) {
   const float n = fminf(fmaxf(coord, 0.0f), static_cast<float>(m) - 1.0f);
   const float i = fminf(floorf(n), static_cast<float>(m) - 2.0f);
-  return {static_cast<int>(i), n - i};
+  return {static_cast<int>(i), keep_nan(coord, n - i)};
 }
 
 // Clamp coord+0.5 to [0, m]; floor, but at most m-1 (Simulation3D.h:65,73).
 __device__ __forceinline__ Split split_extended(float coord, int m) {
-  const float e = fminf(fmaxf(coord + 0.5f, 0.0f), static_cast<float>(m));
+  const float c = coord + 0.5f;
+  const float e = fminf(fmaxf(c, 0.0f), static_cast<float>(m));
   const float i = fminf(floorf(e), static_cast<float>(m) - 1.0f);
-  return {static_cast<int>(i), e - i};
+  return {static_cast<int>(i), keep_nan(c, e - i)};
 }
 
 __device__ __forceinline__ float lerp(float a, float b, float t) {

@@ -10,6 +10,11 @@ Cells are linearised as (cx*ny + cy)*nz + cz, the [x, y, z] layout of the
 grids, so the three z-neighbours of a cell are adjacent rows. The sort is
 stable: within a cell, particles keep their original index order, which the
 level-set seed's "lowest index wins" tie rule relies on.
+
+The NaN rule (JAX's: NaN in, NaN out, no raise): a particle whose position
+is not finite gets the id ncell, past every cell. Its slots follow
+start[ncell], so no stage that walks cells reads it, and csr.cell holds
+ncell there.
 """
 
 from __future__ import annotations
@@ -25,16 +30,19 @@ from .common import cell_of, cell_scale
 @dataclasses.dataclass
 class CSR:
     order: torch.Tensor  # (N,) int64: original index of each sorted slot
-    cell: torch.Tensor   # (N,) int64: linear cell of each sorted slot
-    start: torch.Tensor  # (ncells+1,) int32: first sorted slot of each cell
+    cell: torch.Tensor   # (N,) int64: linear cell of each sorted slot, ncells if not finite
+    start: torch.Tensor  # (ncells+1,) int32: first sorted slot of each cell; start[ncells]
+    #                      counts the finite particles
 
 
 def build_csr(cfg: SimConfig, pos) -> CSR:
     nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
+    ncell = nx * ny * nz
     c = cell_of(pos * cell_scale(cfg, pos.device))
-    lin = (c[:, 0] * ny + c[:, 1]) * nz + c[:, 2]
+    # A non-finite particle has FAR_CELL on an axis, so its id lies past ncell.
+    lin = ((c[:, 0] * ny + c[:, 1]) * nz + c[:, 2]).clamp_(max=ncell)
     cell, order = torch.sort(lin, stable=True)
-    counts = torch.bincount(lin, minlength=nx * ny * nz)
-    start = torch.zeros(nx * ny * nz + 1, dtype=torch.int32, device=pos.device)
+    counts = torch.bincount(lin, minlength=ncell + 1)[:ncell]
+    start = torch.zeros(ncell + 1, dtype=torch.int32, device=pos.device)
     start[1:] = torch.cumsum(counts, 0)
     return CSR(order=order, cell=cell, start=start)

@@ -22,12 +22,21 @@ def shift(a, axis: int, s: int, fill):
     return out
 
 
+# Cell index of a non-finite coordinate: past every grid, so that build_csr
+# sorts such a particle after every cell (exact in float32 and as an int64
+# product with any grid of up to 10^4 cells an axis).
+FAR_CELL = 1.0e9
+
+
 def cell_of(pos_cells):
     """Cell index of a particle, floor(p + 0.5) (gpCountParticles.hlsl:22).
 
-    Advection clamps positions into the domain, so no bounds check is needed.
+    Advection clamps finite positions into the domain, so no bounds check is
+    needed. A non-finite coordinate (NaN survives the clamp) gets FAR_CELL,
+    which keeps its conversion to an integer defined.
     """
-    return torch.floor(pos_cells + 0.5).long()
+    c = torch.floor(pos_cells + 0.5)
+    return torch.nan_to_num(c, nan=FAR_CELL, posinf=FAR_CELL, neginf=FAR_CELL).long()
 
 
 def cell_scale(cfg, device) -> torch.Tensor:

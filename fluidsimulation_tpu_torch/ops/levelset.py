@@ -29,21 +29,24 @@ def seed_own_cell(cfg: SimConfig, csr: CSR, pc):
     """Each cell's closest own particle.
 
     pc: (N, 3) positions in cell units, in original order. Returns cpos0
-    (nx, ny, nz, 3) in cell units, FAR where a cell holds no particle."""
+    (nx, ny, nz, 3) in cell units, FAR where a cell holds no particle. A
+    particle whose position is not finite has csr.cell = ncell: it lands in
+    an extra last entry of the scatters, which is dropped."""
     nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
     ncell = nx * ny * nz
     dev = pc.device
     pcs = pc[csr.order]
     cf = cell_of(pcs).float()
     d = dist(pcs[:, 0], pcs[:, 1], pcs[:, 2], cf[:, 0], cf[:, 1], cf[:, 2]) - cfg.particle_radius
-    best = torch.full((ncell,), float("inf"), dtype=torch.float32, device=dev)
+    best = torch.full((ncell + 1,), float("inf"), dtype=torch.float32, device=dev)
     best.scatter_reduce_(0, csr.cell, d, "amin")
     # Sorted slots keep original index order within a cell (stable sort),
     # so the lowest winning slot is the lowest winning particle index.
     n = pcs.shape[0]
     slot = torch.arange(n, device=dev)
-    win = torch.full((ncell,), n, dtype=torch.int64, device=dev)
+    win = torch.full((ncell + 1,), n, dtype=torch.int64, device=dev)
     win.scatter_reduce_(0, csr.cell, torch.where(d == best[csr.cell], slot, n), "amin")
+    win = win[:ncell]
     seeded = win < n
     cpos0 = torch.where(seeded[:, None], pcs[torch.where(seeded, win, 0)], FAR)
     return cpos0.reshape(nx, ny, nz, 3)

@@ -1,29 +1,36 @@
-"""Times of the level-set sweeps and the SOR on the card, on the inputs the
-step hands them, at the three configurations chip_smoke.py drives: 128^3
-ppc 1 (20 steps, dt 1/60), the demo's 64^3 ppc 2 (60 steps, dt 1/120) and
-128^3 ppc 2 (10 steps, dt 1/120). The last step's arguments to
-``sweep_closest`` and ``sor_pressure`` are kept and each kernel is timed on
-them by CUDA events: the 24 sweeps, the 8 sweeps of each axis alone (in
-their SWEEP_ORDER order) and the SOR solve. The median step (CUDA events,
-a sync after each step, the first two steps left out) comes with them.
+"""Times of the hand kernels on the card, on the inputs the step hands them,
+at the three configurations chip_smoke.py drives: 128^3 ppc 1 (20 steps,
+dt 1/60), the demo's 64^3 ppc 2 (60 steps, dt 1/120) and 128^3 ppc 2 (10
+steps, dt 1/120). The last step's arguments to each kernel wrapper are kept
+and each kernel is timed on them by CUDA events: the 24 sweeps, the 8 sweeps
+of each axis alone (in their SWEEP_ORDER order), the SOR solve, P2G (at
+every tile of ``cuda_p2g.TILES`` where the checkout has them), the FLIP
+gather and the 27-neighbourhood pass. P2G launched twice on the same inputs
+must give equal results (``p2g_deterministic``); ``walk_stats`` says how its
+work lies over the cells. The median step (CUDA events, a sync after each
+step, the first two steps left out) comes with them.
 
 Run on the card from the root of a checkout:
 
-    python -m fluidsimulation_tpu_torch.utils.kernel_times
+    python -m fluidsimulation_tpu_torch.utils.kernel_times [--dump DIR] [--against DIR]
 
 It imports the ``fluidsimulation_tpu_torch`` of the working directory, so a
 copy of this file at the root of an older checkout, run there as
-``python kernel_times.py``, times that checkout's kernels: that is how the
-one-launch-a-sweep kernel (``fst_sweep``) is timed beside the current one.
-Prints one JSON line per configuration, with the card's name and power
-limit.
+``python kernel_times.py``, times that checkout's kernels. ``--dump DIR``
+saves each configuration's P2G inputs and outputs there; ``--against DIR``
+runs this checkout's P2G on inputs saved so (by another checkout) and
+reports whether its outputs equal the saved ones bit for bit
+(``p2g_equal_to_dump``). Prints one JSON line per configuration, with the
+card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -33,6 +40,13 @@ CONFIGS = (  # (label, grid, ppc, dt, steps)
     ("128^3 ppc 2", 128, 2, 1.0 / 120.0, 10),
 )
 REPS = 20
+SITES = (
+    ("ops.levelset", "neighborhood_pass", "seed"),
+    ("ops.levelset", "sweep_closest", "sweep"),
+    ("ops.p2g", "p2g_accumulate", "p2g"),
+    ("ops.project", "sor_pressure", "sor"),
+    ("ops.flip", "g2p_flip", "g2p"),
+)
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
@@ -68,11 +82,74 @@ def sweep_runner(cuda_sweep):
     return sweeps
 
 
-def main() -> int:
+def flat(pairs):
+    """P2G's [(acc, amt)] * 3 as a list of six tensors."""
+    return [t for pair in pairs for t in pair]
+
+
+def walk_stats(cfg, start) -> dict:
+    """How the P2G walk's work lies over the cells, from the CSR offsets:
+    the most particles in one cell; the particles a thread walks (its 27
+    cells), as a mean over the threads with any; and the share of the lanes'
+    steps that are work where a warp (32 consecutive z of one column) walks
+    each of its 9 columns' 3-cell runs as often as its busiest lane."""
+    nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
+    counts = (start[1:] - start[:-1]).float().reshape(nx, ny, nz)
+    pad = torch.nn.functional.pad(counts, (1, 1 + (-nz) % 32, 1, 1, 1, 1))
+    zt = -(-nz // 32)
+    walk = torch.zeros_like(counts)
+    useful = steps = 0.0
+    for dx in range(3):
+        for dy in range(3):
+            col = pad[dx:dx + nx, dy:dy + ny]
+            run = col[:, :, 0:32 * zt] + col[:, :, 1:32 * zt + 1] + col[:, :, 2:32 * zt + 2]
+            run[:, :, nz:] = 0  # lanes past the grid walk nothing
+            walk += run[:, :, :nz]
+            useful += float(run.sum())
+            steps += float(run.reshape(nx, ny, zt, 32).amax(-1).sum())
+    return {"cell_max_particles": int(counts.max()),
+            "walk_mean_particles": float(walk[walk > 0].mean()),
+            "walk_max_particles": int(walk.max()),
+            "warp_step_efficiency": useful / (32 * steps)}
+
+
+def p2g_rows(cuda_p2g, args, row, dump: Path | None, against: Path | None, tag: str):
+    cfg, pcs, vels, start = args
+    row.update(walk_stats(cfg, start))
+    out = flat(cuda_p2g.p2g_accumulate(*args))
+    again = flat(cuda_p2g.p2g_accumulate(*args))
+    row["p2g_deterministic"] = all(torch.equal(a, b) for a, b in zip(out, again))
+    row["p2g_ms"] = cuda_ms(lambda: cuda_p2g.p2g_accumulate(*args))
+    for tile in getattr(cuda_p2g, "TILES", ()):
+        got = flat(cuda_p2g.p2g_accumulate(*args, tile=tile))
+        row[f"p2g_ms_tile_{tile[0]}x{tile[1]}x32"] = cuda_ms(
+            lambda t=tile: cuda_p2g.p2g_accumulate(*args, tile=t))
+        row[f"p2g_equal_tile_{tile[0]}x{tile[1]}x32"] = all(
+            torch.equal(a, b) for a, b in zip(got, out))
+    if dump is not None:
+        dump.mkdir(parents=True, exist_ok=True)
+        torch.save({"args": [t.cpu() for t in (pcs, vels, start)], "out": [t.cpu() for t in out]},
+                   dump / f"{tag}.pt")
+    if against is not None:
+        saved = torch.load(against / f"{tag}.pt")
+        dev = pcs.device
+        theirs = flat(cuda_p2g.p2g_accumulate(cfg, *(t.to(dev) for t in saved["args"])))
+        want = [t.to(dev) for t in saved["out"]]
+        row["p2g_equal_to_dump"] = all(torch.equal(a, b) for a, b in zip(theirs, want))
+        row["p2g_max_abs_diff_to_dump"] = max(float((a - b).abs().max())
+                                              for a, b in zip(theirs, want))
+        del saved, theirs, want
+
+
+def main(argv=None) -> int:
     import fluidsimulation_tpu_torch as ft
-    from fluidsimulation_tpu_torch.ops import cuda_sor, cuda_sweep
+    from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep
     from fluidsimulation_tpu_torch.utils.profiling import hooked
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--dump", type=Path, default=None)
+    parser.add_argument("--against", type=Path, default=None)
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: torch.cuda.is_available() is false; this needs a CUDA card")
     card = subprocess.run(
@@ -99,8 +176,7 @@ def main() -> int:
             _captured[key] = args
             return orig(*args)
 
-        with hooked([("ops.levelset", "sweep_closest", "sweep"),
-                     ("ops.project", "sor_pressure", "sor")], record):
+        with hooked(SITES, record):
             state = ft.step(state, dt, cfg)
         torch.cuda.synchronize()
         _, phi, cpos = captured["sweep"]
@@ -111,6 +187,10 @@ def main() -> int:
             row[f"sweeps_{name}_ms"] = cuda_ms(lambda c=codes: sweeps(cfg, phi, cpos, c))
         row["sor_ms"] = cuda_ms(lambda: cuda_sor.sor_pressure(*captured["sor"]))
         row["fluid_cells"] = int((captured["sor"][1] < 0).sum())
+        row["g2p_ms"] = cuda_ms(lambda: cuda_g2p.g2p_flip(*captured["g2p"]))
+        row["seed_ms"] = cuda_ms(lambda: cuda_seed.neighborhood_pass(*captured["seed"]))
+        p2g_rows(cuda_p2g, captured["p2g"], row, args.dump, args.against,
+                 label.replace("^", "").replace(" ", "_"))
         print(json.dumps(row), flush=True)
         del state, captured, phi, cpos
         torch.cuda.empty_cache()

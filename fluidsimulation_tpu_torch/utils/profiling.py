@@ -20,7 +20,8 @@ Run on the card from the repository root:
 It prints, for the three configurations chip_smoke.py drives (128^3 ppc 1,
 the demo's 64^3 ppc 2, 128^3 ppc 2), the median time of each stage over
 steps 3-12 from the dam-break start, the median step, and the device time
-of steps 13-15 and the busy share.
+of steps 13-15, the busy share and the largest device events (kernels by
+name, the hand kernels among them) a step.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ import statistics
 import time
 
 import torch
+
+TOP_EVENTS = 10  # device events listed by time under each configuration
 
 # (module, name the step's code looks up, stage label), in step order.
 SITES = [
@@ -130,7 +133,8 @@ def stage_times(state, dt, cfg, n_steps: int):
 
 def device_time(state, dt, cfg, n_steps: int):
     """Device time and wall time of n_steps steps under torch.profiler.
-    Returns (state, device ms a step, profiled wall ms a step)."""
+    Returns (state, device ms a step, profiled wall ms a step, the device
+    events as (name, ms a step), largest first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -145,9 +149,10 @@ def device_time(state, dt, cfg, n_steps: int):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # Device-side events only: a CPU op's own device time repeats the time
     # of the kernels it launched, which appear again as device events.
-    kernel_us = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
-    return state, kernel_us / 1e3 / n_steps, wall_ms / n_steps
+    events = sorted(((e.key, e.self_device_time_total / 1e3 / n_steps)
+                     for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                    key=lambda kv: -kv[1])
+    return state, sum(ms for _, ms in events), wall_ms / n_steps, events
 
 
 def main() -> int:
@@ -167,7 +172,7 @@ def main() -> int:
         state = ft.init_state(cfg, "cuda:0")
         state, _, _ = stage_times(state, dt, cfg, 2)  # warm-up: steps 1-2
         state, rows, totals = stage_times(state, dt, cfg, 10)
-        state, device_ms, wall_ms = device_time(state, dt, cfg, 3)
+        state, device_ms, wall_ms, events = device_time(state, dt, cfg, 3)
         print(f"\n{n}^3 ppc {ppc}, {cfg.num_particles} particles, dt={dt!r}, steps 3-12, "
               f"medians of CUDA-event stage times, {card}")
         medians = {s: statistics.median(r[s] for r in rows) for s in STAGES}
@@ -178,8 +183,10 @@ def main() -> int:
         print(f"  {'step (median)':24s} {step_ms:10.4f} ms")
         print(f"  steps 13-15 under torch.profiler: device {device_ms:.4f} ms a step, "
               f"profiled wall {wall_ms:.4f} ms a step")
-        print(f"  busy share: device ms a step / median step = {device_ms / step_ms:.4f}",
-              flush=True)
+        print(f"  busy share: device ms a step / median step = {device_ms / step_ms:.4f}")
+        for name, ms in events[:TOP_EVENTS]:
+            print(f"    device {ms:9.4f} ms a step  {name[:100]}")
+        print("", end="", flush=True)
     return 0
 
 

@@ -11,8 +11,11 @@ for bit, also at shapes that break the sweep kernel's 32-line tiles and
 32-plane chunks and the SOR's colour-split layout (13x9x17, 20x12x24,
 8x8x200, whose z-lines are longer than six chunks, and 64^3); the P2G
 kernel sums in another order than index_add_ (validity equal, rtol = atol
-= 2e-4 on valid faces), at ppc 1 and at ppc 2; the G2P kernel within 1e-5
-abs. The combined-key pack (pure copies) must equal its
+= 2e-4 on valid faces), at ppc 1 and at ppc 2, at those odd shapes (ragged
+cell tiles) and with 3,000 particles in one cell (a halo walked in chunks);
+two P2G launches, and its tile shapes, are bit-equal; the G2P kernel within
+1e-5 abs, and NaN where a coordinate is NaN. A state with one NaN position
+steps twice on the card without a raise (the NaN rule). The combined-key pack (pure copies) must equal its
 plain version bit for bit at small odd shapes and at 64^3.
 """
 
@@ -71,14 +74,26 @@ def test_seed_and_sweep_kernels_bit_exact(dev):
     assert torch.equal(sphi, want[0]) and torch.equal(scpos, want[1])
 
 
-@pytest.mark.parametrize("cfg", [CFG, CFG2], ids=["ppc1", "ppc2"])
-def test_p2g_kernel_matches_plain(dev, cfg):
-    pos, vel = _particles(dev, cfg)
+def _random_particles(dev, cfg, n, seed, cram=0):
+    """n particles uniform over the advection clamp box, ``cram`` more in
+    one cell, normal velocities: CSR-sorted (pcs, vels, start) on the card."""
+    rng = np.random.default_rng(seed)
+    m = np.array([cfg.nx, cfg.ny, cfg.nz], dtype=np.float32)
+    pos = rng.uniform(-0.4 / m, 1.0 - 0.6 / m, size=(n, 3)).astype(np.float32)
+    if cram:
+        cell = np.floor(m / 2)
+        pile = (cell + rng.uniform(-0.45, 0.45, size=(cram, 3))) / m
+        pos = np.concatenate([pos, pile.astype(np.float32)])
+    pos = torch.from_numpy(pos).to(dev)
+    vel = torch.from_numpy(rng.standard_normal(tuple(pos.shape)).astype(np.float32)).to(dev)
     csr = build_csr(cfg, pos)
-    pcs, vels = (pos * N)[csr.order], vel[csr.order]
-    got, n = _counted(cuda_p2g, cuda_p2g.p2g_accumulate, cfg, pcs, vels, csr.start)
-    assert n == 1
-    want = cuda_p2g.p2g_accumulate_plain(cfg, pcs, vels)
+    scale = torch.tensor(m, device=dev)
+    return (pos * scale)[csr.order], vel[csr.order], csr.start
+
+
+def _p2g_close(cfg, got, want):
+    """Validity equal except within 1e-6 of the threshold; rtol = atol =
+    2e-4 on faces valid in both (the sums are taken in another order)."""
     for (acc_k, amt_k), (acc_p, amt_p) in zip(got, want):
         near = (amt_p - cfg.zero_thresh).abs() < 1e-6
         valid_k, valid_p = amt_k > cfg.zero_thresh, amt_p > cfg.zero_thresh
@@ -86,6 +101,57 @@ def test_p2g_kernel_matches_plain(dev, cfg):
         both = valid_k & valid_p
         torch.testing.assert_close((acc_k / amt_k)[both], (acc_p / amt_p)[both],
                                    rtol=2e-4, atol=2e-4)
+
+
+def _p2g_equal(a, b):
+    return all(torch.equal(x, y) for pa, pb in zip(a, b) for x, y in zip(pa, pb))
+
+
+@pytest.mark.parametrize("cfg", [CFG, CFG2], ids=["ppc1", "ppc2"])
+def test_p2g_kernel_matches_plain(dev, cfg):
+    pos, vel = _particles(dev, cfg)
+    csr = build_csr(cfg, pos)
+    pcs, vels = (pos * N)[csr.order], vel[csr.order]
+    got, n = _counted(cuda_p2g, cuda_p2g.p2g_accumulate, cfg, pcs, vels, csr.start)
+    assert n == 1
+    _p2g_close(cfg, got, cuda_p2g.p2g_accumulate_plain(cfg, pcs, vels))
+
+
+@pytest.mark.parametrize("cfg", [CFG, CFG2], ids=["ppc1", "ppc2"])
+def test_p2g_kernel_deterministic(dev, cfg):
+    """Two launches on the same inputs, and every tile shape, bit-equal."""
+    pos, vel = _particles(dev, cfg)
+    csr = build_csr(cfg, pos)
+    args = (cfg, (pos * N)[csr.order], vel[csr.order], csr.start)
+    first = cuda_p2g.p2g_accumulate(*args)
+    assert _p2g_equal(first, cuda_p2g.p2g_accumulate(*args))
+    for tile in cuda_p2g.TILES:
+        assert _p2g_equal(first, cuda_p2g.p2g_accumulate(*args, tile=tile)), tile
+
+
+@pytest.mark.parametrize("shape", [(13, 9, 17), (20, 12, 24), (8, 8, 200)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_p2g_kernel_at_shapes(dev, shape):
+    """Ragged tiles and z-columns of many tiles: every tile shape against
+    the plain version, and bit-equal to each other."""
+    cfg = _shape_cfg(shape)
+    pcs, vels, start = _random_particles(dev, cfg, 4 * shape[0] * shape[1] * shape[2], sum(shape))
+    got = [cuda_p2g.p2g_accumulate(cfg, pcs, vels, start, tile=t) for t in cuda_p2g.TILES]
+    _p2g_close(cfg, got[0], cuda_p2g.p2g_accumulate_plain(cfg, pcs, vels))
+    for other in got[1:]:
+        assert _p2g_equal(got[0], other)
+
+
+def test_p2g_kernel_crammed(dev):
+    """3,000 particles in one cell besides the rest: the halo of the tiles
+    around it is walked in chunks (2,048 particles a buffer)."""
+    cfg = _shape_cfg((20, 12, 24))
+    pcs, vels, start = _random_particles(dev, cfg, 20 * 12 * 24, 3, cram=3000)
+    assert int((start[1:] - start[:-1]).max()) >= 3000
+    got, n = _counted(cuda_p2g, cuda_p2g.p2g_accumulate, cfg, pcs, vels, start)
+    assert n == 1
+    _p2g_close(cfg, got, cuda_p2g.p2g_accumulate_plain(cfg, pcs, vels))
+    assert _p2g_equal(got, cuda_p2g.p2g_accumulate(cfg, pcs, vels, start))
 
 
 def test_sor_kernel_bit_exact(dev):
@@ -180,6 +246,44 @@ def test_g2p_kernel_matches_plain(dev):
     torch.testing.assert_close(k1, wk1, rtol=0, atol=1e-5)
 
 
+def test_g2p_kernel_nan_position(dev):
+    """The NaN rule: a NaN coordinate gives NaN vel' and k1, as the plain
+    version does; the other particles are untouched."""
+    pos, vel = _particles(dev)
+    rng = np.random.default_rng(4)
+    grids = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+             for s in (CFG.u_shape(), CFG.v_shape(), CFG.w_shape()) * 2]
+    bad = pos.clone()
+    rows = torch.tensor([0, 5, 77], device=dev)
+    bad[rows, torch.tensor([0, 1, 2], device=dev)] = float("nan")
+    v, k1 = cuda_g2p.g2p_flip(CFG, bad, vel, *grids, 0.97)
+    wv, wk1 = cuda_g2p.g2p_flip_plain(CFG, bad, vel, *grids, 0.97)
+    clean_v, clean_k1 = cuda_g2p.g2p_flip(CFG, pos, vel, *grids, 0.97)
+    hit = torch.zeros(pos.shape[0], dtype=torch.bool, device=dev)
+    hit[rows] = True
+    for got, want, clean in ((v, wv, clean_v), (k1, wk1, clean_k1)):
+        assert bool(got[hit].isnan().all()) and bool(want[hit].isnan().all())
+        assert torch.equal(got[~hit], clean[~hit])
+        torch.testing.assert_close(got[~hit], want[~hit], rtol=0, atol=1e-5)
+
+
+def test_nan_step_on_card(dev):
+    """One NaN position, two guarded steps on the card: no raise and no
+    device assert, the state unhealthy, only that particle non-finite,
+    every grid finite."""
+    s = ft.init_state(CFG, dev)
+    s.pos[5, 0] = float("nan")
+    for _ in range(2):
+        s, healthy = ft.step_guarded(s, 1.0 / 60.0, CFG)
+        torch.cuda.synchronize()
+        assert not bool(healthy)
+        for name in ("pos", "vel"):
+            rows = (~getattr(s, name).isfinite().all(1)).nonzero().flatten().tolist()
+            assert rows == [5], name
+        for name in ("u", "v", "w", "phi"):
+            assert bool(getattr(s, name).isfinite().all()), name
+
+
 def test_wrappers_reject_bad_arguments(dev):
     cpos0 = torch.zeros((N, N, N, 3), dtype=torch.float64, device=dev)
     with pytest.raises(ValueError, match="float32"):
@@ -199,6 +303,10 @@ def test_wrappers_reject_bad_arguments(dev):
         cuda_sor.sor_pressure(CFG, phi, phi, torch.zeros((N, N, N)))
     with pytest.raises(ValueError, match="shape"):
         cuda_sor.sor_pressure(CFG, phi, phi, torch.zeros((N, N, N + 1), device=dev))
+    pcs = torch.zeros((10, 3), device=dev)
+    start = torch.zeros(N**3 + 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="tile"):
+        cuda_p2g.p2g_accumulate(CFG, pcs, pcs, start, tile=(3, 3))
 
 
 def _mac_grids(dev, shape, seed=0):

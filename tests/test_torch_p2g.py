@@ -103,3 +103,49 @@ def test_p2g_gather_window_covers_every_face():
         # No deposit falls off the grid: each particle's weights sum to 1.
         assert float(amt.sum()) == pytest.approx(pos.shape[0], rel=1e-5)
 
+
+
+
+def test_p2g_tile_argument_on_the_cpu():
+    """The default tile is one the kernel has; on a CPU tensor any tile
+    gives the plain version, bit for bit, and launches nothing."""
+    assert cuda_p2g.TILE in cuda_p2g.TILES
+    pos, vel = _seeded(7, 0)
+    tp, tv = torch.from_numpy(pos) * N, torch.from_numpy(vel)
+    csr = build_csr(CFG, torch.from_numpy(pos))
+    before = cuda_p2g.KERNEL.launches
+    want = cuda_p2g.p2g_accumulate_plain(CFG, tp[csr.order], tv[csr.order])
+    for tile in cuda_p2g.TILES:
+        got = cuda_p2g.p2g_accumulate(CFG, tp[csr.order], tv[csr.order], csr.start, tile=tile)
+        for (a, m), (aw, mw) in zip(got, want):
+            assert torch.equal(a, aw) and torch.equal(m, mw)
+    assert cuda_p2g.KERNEL.launches == before
+
+
+def test_walk_stats_counts_the_walk():
+    """utils/kernel_times.py::walk_stats against a direct count on a small
+    grid with one heavy cell: the most particles in a cell, the 27-cell walks
+    and the share of warp steps that are work."""
+    from fluidsimulation_tpu_torch.utils.kernel_times import walk_stats
+
+    nx, ny, nz = 3, 4, 40
+    cfg = ft.SimConfig(nx=nx, ny=ny, nz=nz, cells_per_meter=float(nx))
+    counts = np.random.default_rng(1).integers(0, 3, size=(nx, ny, nz))
+    counts[1, 2, 5] = 50
+    start = torch.zeros(nx * ny * nz + 1, dtype=torch.int32)
+    start[1:] = torch.from_numpy(np.cumsum(counts.ravel()))
+    pad = np.pad(counts, 1)
+    walk = np.zeros((nx, ny, nz))
+    useful = steps = 0
+    for dx in range(3):
+        for dy in range(3):
+            run = sum(pad[dx:dx + nx, dy:dy + ny, dz:dz + nz] for dz in range(3))
+            walk += run
+            useful += run.sum()
+            for z0 in range(0, nz, 32):
+                steps += run[:, :, z0:z0 + 32].max(axis=2).sum()
+    got = walk_stats(cfg, start)
+    assert got["cell_max_particles"] == 50
+    assert got["walk_max_particles"] == walk.max()
+    assert got["walk_mean_particles"] == pytest.approx(walk[walk > 0].mean())
+    assert got["warp_step_efficiency"] == pytest.approx(useful / (32 * steps))
