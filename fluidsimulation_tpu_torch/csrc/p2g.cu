@@ -30,12 +30,12 @@
 // (PERF.md, section 6).
 //
 // Design, the TPU kernels' cell-indexed form (ops/pallas_p2g.py:1-22):
-//   * A block owns a tile of TX x TY x 32 cells, z fastest, one thread a
+//   * A block owns a tile of 1 x 8 x 32 cells, z fastest, one thread a
 //     cell, so a warp is 32 consecutive z. The thread of cell (i, j, k)
 //     produces the U, V and W faces with that index; a thread on the grid's
-//     upper edge also the last face layer (index nx, ny or nz). The tile's
-//     x-y extent is a knob (fst_p2g's tx, ty; ops/cuda_p2g.py::TILES),
-//     1 x 8 by default.
+//     upper edge also the last face layer (index nx, ny or nz). Of the
+//     tiles measured on the card (1 x 8, 2 x 8, 1 x 4 in x, y), 1 x 8 was
+//     within 5% of the best at all three paths (PERF.md, section 6).
 //   * The halo, the tile grown by one cell on each side, is staged in shared
 //     memory. Cells are linearised with z fastest (ops/binning.py), so each
 //     (cx, cy) column of the halo is one contiguous run of CSR slots. The
@@ -67,7 +67,7 @@
 // never read.
 // Shared memory a block: 2 buffers x 6 arrays x kField floats (a 32-slot
 // row padded by one float, fields 11 banks apart) plus the halo's offsets:
-// 106,224 B at 1 x 8 x 32, two blocks an SM.
+// 106,224 B a block, two blocks an SM.
 #include <algorithm>
 #include <type_traits>
 
@@ -83,16 +83,14 @@ constexpr int kChunk = 2048;   // halo positions a buffer holds
 constexpr int kField = kChunk + kChunk / 32 + 11;
 constexpr int kBuffer = 6 * kField;
 
-template <int TX, int TY>
-struct Tile {
-  static constexpr int kThreads = TX * TY * kTZ;
-  static constexpr int kWarps = kThreads / 32;
-  static constexpr int kHY = TY + 2;
-  static constexpr int kCols = (TX + 2) * (TY + 2);  // halo columns
-  static constexpr int kZ = kTZ + 3;  // offsets of halo cells z0-1 .. z0+32, and the end
-  static constexpr int kSmem = 4 * (2 * kBuffer + kCols * kZ + kCols);
-  static_assert(kCols <= 64, "the column scan covers two warp widths");
-};
+constexpr int kTX = 1, kTY = 8;  // cells a tile along x and y
+constexpr int kThreads = kTX * kTY * kTZ;
+constexpr int kWarps = kThreads / 32;
+constexpr int kHY = kTY + 2;
+constexpr int kCols = (kTX + 2) * (kTY + 2);  // halo columns
+constexpr int kZ = kTZ + 3;  // offsets of halo cells z0-1 .. z0+32, and the end
+constexpr int kSmem = 4 * (2 * kBuffer + kCols * kZ + kCols);
+static_assert(kCols <= 64, "the column scan covers two warp widths");
 
 __device__ __forceinline__ int slot(int q) { return q + (q >> 5); }
 
@@ -209,31 +207,29 @@ __device__ __forceinline__ void walk_run(const float* __restrict__ buf, int lo, 
   }
 }
 
-template <int TX, int TY>
-__global__ void __launch_bounds__(Tile<TX, TY>::kThreads, 2)
+__global__ void __launch_bounds__(kThreads, 2)
 p2g_tile_kernel(const float* __restrict__ pcs, const float* __restrict__ vels,
                 const int* __restrict__ start, float* __restrict__ acc_u,
                 float* __restrict__ amt_u, float* __restrict__ acc_v,
                 float* __restrict__ amt_v, float* __restrict__ acc_w,
                 float* __restrict__ amt_w, int nx, int ny, int nz) {
-  using T = Tile<TX, TY>;
   extern __shared__ float smem[];
   float* buffers = smem;  // [2][x, y, z, vx, vy, vz][kField]
   // first[c * kZ + zl]: global CSR slot of halo cell zl (z = z0 - 1 + zl,
   // clamped to [0, nz]) of column c; 0 for a column off the grid.
   int* first = reinterpret_cast<int*>(smem + 2 * kBuffer);
   // shift[c]: halo position minus global slot, within column c.
-  int* shift = first + T::kCols * T::kZ;
+  int* shift = first + kCols * kZ;
   __shared__ int total;  // particles in the halo
 
-  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY, z0 = blockIdx.z * kTZ;
+  const int x0 = blockIdx.x * kTX, y0 = blockIdx.y * kTY, z0 = blockIdx.z * kTZ;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int lk = tid % kTZ, lj = (tid / kTZ) % TY, li = tid / (kTZ * TY);
+  const int lk = tid % kTZ, lj = (tid / kTZ) % kTY, li = tid / (kTZ * kTY);
   const int i = x0 + li, j = y0 + lj, k = z0 + lk;
 
-  for (int e = tid; e < T::kCols * T::kZ; e += T::kThreads) {
-    const int c = e / T::kZ, zl = e % T::kZ;
-    const int cx = x0 - 1 + c / T::kHY, cy = y0 - 1 + c % T::kHY;
+  for (int e = tid; e < kCols * kZ; e += kThreads) {
+    const int c = e / kZ, zl = e % kZ;
+    const int cx = x0 - 1 + c / kHY, cy = y0 - 1 + c % kHY;
     int s = 0;
     if (cx >= 0 && cx < nx && cy >= 0 && cy < ny) {
       const int z = min(max(z0 - 1 + zl, 0), nz);
@@ -246,13 +242,13 @@ p2g_tile_kernel(const float* __restrict__ pcs, const float* __restrict__ vels,
     // Halo positions: a column's particles follow those of the columns
     // before it.
     auto count = [&](int c) {
-      return c < T::kCols ? first[c * T::kZ + T::kZ - 1] - first[c * T::kZ] : 0;
+      return c < kCols ? first[c * kZ + kZ - 1] - first[c * kZ] : 0;
     };
     const int na = count(lane), nb = count(lane + 32);
     const int a = inclusive_scan(na, lane), b = inclusive_scan(nb, lane);
     const int sum_a = __shfl_sync(0xffffffffu, a, 31);
-    if (lane < T::kCols) shift[lane] = a - na - first[lane * T::kZ];
-    if (lane + 32 < T::kCols) shift[lane + 32] = sum_a + b - nb - first[(lane + 32) * T::kZ];
+    if (lane < kCols) shift[lane] = a - na - first[lane * kZ];
+    if (lane + 32 < kCols) shift[lane + 32] = sum_a + b - nb - first[(lane + 32) * kZ];
     if (lane == 31) total = sum_a + b;
   }
   __syncthreads();
@@ -263,9 +259,9 @@ p2g_tile_kernel(const float* __restrict__ pcs, const float* __restrict__ vels,
   auto load = [&](int t) {
     const int c0 = t * kChunk, c1 = min(c0 + kChunk, total);
     float* buf = buffers + (t & 1) * kBuffer;
-    for (int c = warp; c < T::kCols; c += T::kWarps) {
-      const int g0 = first[c * T::kZ];
-      const int h0 = g0 + shift[c], h1 = first[c * T::kZ + T::kZ - 1] + shift[c];
+    for (int c = warp; c < kCols; c += kWarps) {
+      const int g0 = first[c * kZ];
+      const int h0 = g0 + shift[c], h1 = first[c * kZ + kZ - 1] + shift[c];
       const int lo = max(h0, c0), hi = min(h1, c1);
       const long long g = static_cast<long long>(g0) + (lo - h0);
       for (int e = lane; e < 3 * (hi - lo); e += 32) {
@@ -298,8 +294,8 @@ p2g_tile_kernel(const float* __restrict__ pcs, const float* __restrict__ vels,
       // (i-1+dx, j-1+dy), then its cells k-1 .. k+1, one CSR run.
       auto column = [&](auto dx, auto dy) {
         constexpr int DX = decltype(dx)::value, DY = decltype(dy)::value;
-        const int c = (li + DX) * T::kHY + lj + DY;
-        const int* f = first + c * T::kZ + lk;
+        const int c = (li + DX) * kHY + lj + DY;
+        const int* f = first + c * kZ + lk;
         const int sh = shift[c];
         const int h0 = f[0] + sh, h3 = f[3] + sh;
         const float cx = fi + (DX - 1.0f), cy = fj + (DY - 1.0f);
@@ -341,38 +337,17 @@ p2g_tile_kernel(const float* __restrict__ pcs, const float* __restrict__ vels,
   }
 }
 
-template <int TX, int TY>
-int launch(const float* pcs, const float* vels, const int* start, float* acc_u,
-           float* amt_u, float* acc_v, float* amt_v, float* acc_w, float* amt_w,
-           int nx, int ny, int nz, cudaStream_t stream) {
-  using T = Tile<TX, TY>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      p2g_tile_kernel<TX, TY>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY, (nz + kTZ - 1) / kTZ);
-  p2g_tile_kernel<TX, TY><<<grid, T::kThreads, T::kSmem, stream>>>(
-      pcs, vels, start, acc_u, amt_u, acc_v, amt_v, acc_w, amt_w, nx, ny, nz);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// The tile's x and y extent (tx, ty) is a knob: 1 x 8, 2 x 8 or 1 x 4
-// (ops/cuda_p2g.py::TILES); any other returns cudaErrorInvalidValue.
 extern "C" int fst_p2g(const float* pcs, const float* vels, const int* start,
                        float* acc_u, float* amt_u, float* acc_v, float* amt_v,
-                       float* acc_w, float* amt_w, int nx, int ny, int nz, int tx,
-                       int ty, void* stream) {
+                       float* acc_w, float* amt_w, int nx, int ny, int nz, void* stream) {
   if (nx <= 0 || ny <= 0 || nz <= 0) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tx == 1 && ty == 8) {
-    return launch<1, 8>(pcs, vels, start, acc_u, amt_u, acc_v, amt_v, acc_w, amt_w, nx, ny, nz, s);
-  }
-  if (tx == 2 && ty == 8) {
-    return launch<2, 8>(pcs, vels, start, acc_u, amt_u, acc_v, amt_v, acc_w, amt_w, nx, ny, nz, s);
-  }
-  if (tx == 1 && ty == 4) {
-    return launch<1, 4>(pcs, vels, start, acc_u, amt_u, acc_v, amt_v, acc_w, amt_w, nx, ny, nz, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      p2g_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((nx + kTX - 1) / kTX, (ny + kTY - 1) / kTY, (nz + kTZ - 1) / kTZ);
+  p2g_tile_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      pcs, vels, start, acc_u, amt_u, acc_v, amt_v, acc_w, amt_w, nx, ny, nz);
+  return static_cast<int>(cudaGetLastError());
 }

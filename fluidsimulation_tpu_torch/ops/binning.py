@@ -24,7 +24,7 @@ import dataclasses
 import torch
 
 from ..core.config import SimConfig
-from .common import cell_of, cell_scale
+from .common import cell_of, cell_scale, far_cell
 
 
 @dataclasses.dataclass
@@ -38,8 +38,8 @@ class CSR:
 def build_csr(cfg: SimConfig, pos) -> CSR:
     nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
     ncell = nx * ny * nz
-    c = cell_of(pos * cell_scale(cfg, pos.device))
-    # A non-finite particle has FAR_CELL on an axis, so its id lies past ncell.
+    c = cell_of(pos * cell_scale(cfg, pos.device), far_cell(cfg))
+    # A non-finite particle has far_cell on an axis, so its id is ncell or more.
     lin = ((c[:, 0] * ny + c[:, 1]) * nz + c[:, 2]).clamp_(max=ncell)
     cell, order = torch.sort(lin, stable=True)
     counts = torch.bincount(lin, minlength=ncell + 1)[:ncell]

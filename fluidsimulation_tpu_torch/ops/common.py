@@ -22,21 +22,25 @@ def shift(a, axis: int, s: int, fill):
     return out
 
 
-# Cell index of a non-finite coordinate: past every grid, so that build_csr
-# sorts such a particle after every cell (exact in float32 and as an int64
-# product with any grid of up to 10^4 cells an axis).
-FAR_CELL = 1.0e9
+def far_cell(cfg) -> float:
+    """Cell index given to a non-finite coordinate: the least power of two
+    at or above ncell = nx*ny*nz, exact in float32. build_csr's linear id
+    (cx*ny + cy)*nz + cz of a particle with any such coordinate is then at
+    least ncell (finite cells are >= 0), so it sorts after every cell. The
+    id stays below 2^63 for any grid whose CSR offsets fit in memory."""
+    ncell = cfg.nx * cfg.ny * cfg.nz
+    return float(1 << (ncell - 1).bit_length())
 
 
-def cell_of(pos_cells):
+def cell_of(pos_cells, far: float):
     """Cell index of a particle, floor(p + 0.5) (gpCountParticles.hlsl:22).
 
     Advection clamps finite positions into the domain, so no bounds check is
-    needed. A non-finite coordinate (NaN survives the clamp) gets FAR_CELL,
-    which keeps its conversion to an integer defined.
+    needed. A non-finite coordinate (NaN survives the clamp) gets ``far``
+    (far_cell), which keeps its conversion to an integer defined.
     """
     c = torch.floor(pos_cells + 0.5)
-    return torch.nan_to_num(c, nan=FAR_CELL, posinf=FAR_CELL, neginf=FAR_CELL).long()
+    return torch.nan_to_num(c, nan=far, posinf=far, neginf=far).long()
 
 
 def cell_scale(cfg, device) -> torch.Tensor:

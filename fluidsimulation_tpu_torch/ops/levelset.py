@@ -15,7 +15,7 @@ import torch
 
 from ..core.config import SimConfig
 from .binning import CSR
-from .common import cell_of
+from .common import cell_of, far_cell
 from .cuda_seed import FAR, dist, neighborhood_pass
 from .cuda_sweep import SWEEP_ORDER, sweep_closest
 
@@ -36,7 +36,7 @@ def seed_own_cell(cfg: SimConfig, csr: CSR, pc):
     ncell = nx * ny * nz
     dev = pc.device
     pcs = pc[csr.order]
-    cf = cell_of(pcs).float()
+    cf = cell_of(pcs, far_cell(cfg)).float()
     d = dist(pcs[:, 0], pcs[:, 1], pcs[:, 2], cf[:, 0], cf[:, 1], cf[:, 2]) - cfg.particle_radius
     best = torch.full((ncell + 1,), float("inf"), dtype=torch.float32, device=dev)
     best.scatter_reduce_(0, csr.cell, d, "amin")

@@ -3,8 +3,7 @@ at the three configurations chip_smoke.py drives: 128^3 ppc 1 (20 steps,
 dt 1/60), the demo's 64^3 ppc 2 (60 steps, dt 1/120) and 128^3 ppc 2 (10
 steps, dt 1/120). The last step's arguments to each kernel wrapper are kept
 and each kernel is timed on them by CUDA events: the 24 sweeps, the 8 sweeps
-of each axis alone (in their SWEEP_ORDER order), the SOR solve, P2G (at
-every tile of ``cuda_p2g.TILES`` where the checkout has them), the FLIP
+of each axis alone (in their SWEEP_ORDER order), the SOR solve, P2G, the FLIP
 gather and the 27-neighbourhood pass. P2G launched twice on the same inputs
 must give equal results (``p2g_deterministic``); ``walk_stats`` says how its
 work lies over the cells. The median step (CUDA events, a sync after each
@@ -120,12 +119,6 @@ def p2g_rows(cuda_p2g, args, row, dump: Path | None, against: Path | None, tag: 
     again = flat(cuda_p2g.p2g_accumulate(*args))
     row["p2g_deterministic"] = all(torch.equal(a, b) for a, b in zip(out, again))
     row["p2g_ms"] = cuda_ms(lambda: cuda_p2g.p2g_accumulate(*args))
-    for tile in getattr(cuda_p2g, "TILES", ()):
-        got = flat(cuda_p2g.p2g_accumulate(*args, tile=tile))
-        row[f"p2g_ms_tile_{tile[0]}x{tile[1]}x32"] = cuda_ms(
-            lambda t=tile: cuda_p2g.p2g_accumulate(*args, tile=t))
-        row[f"p2g_equal_tile_{tile[0]}x{tile[1]}x32"] = all(
-            torch.equal(a, b) for a, b in zip(got, out))
     if dump is not None:
         dump.mkdir(parents=True, exist_ok=True)
         torch.save({"args": [t.cpu() for t in (pcs, vels, start)], "out": [t.cpu() for t in out]},

@@ -13,7 +13,7 @@ for bit, also at shapes that break the sweep kernel's 32-line tiles and
 kernel sums in another order than index_add_ (validity equal, rtol = atol
 = 2e-4 on valid faces), at ppc 1 and at ppc 2, at those odd shapes (ragged
 cell tiles) and with 3,000 particles in one cell (a halo walked in chunks);
-two P2G launches, and its tile shapes, are bit-equal; the G2P kernel within
+two P2G launches are bit-equal; the G2P kernel within
 1e-5 abs, and NaN where a coordinate is NaN. A state with one NaN position
 steps twice on the card without a raise (the NaN rule). The combined-key pack (pure copies) must equal its
 plain version bit for bit at small odd shapes and at 64^3.
@@ -119,27 +119,22 @@ def test_p2g_kernel_matches_plain(dev, cfg):
 
 @pytest.mark.parametrize("cfg", [CFG, CFG2], ids=["ppc1", "ppc2"])
 def test_p2g_kernel_deterministic(dev, cfg):
-    """Two launches on the same inputs, and every tile shape, bit-equal."""
+    """Two launches on the same inputs bit-equal."""
     pos, vel = _particles(dev, cfg)
     csr = build_csr(cfg, pos)
     args = (cfg, (pos * N)[csr.order], vel[csr.order], csr.start)
-    first = cuda_p2g.p2g_accumulate(*args)
-    assert _p2g_equal(first, cuda_p2g.p2g_accumulate(*args))
-    for tile in cuda_p2g.TILES:
-        assert _p2g_equal(first, cuda_p2g.p2g_accumulate(*args, tile=tile)), tile
+    assert _p2g_equal(cuda_p2g.p2g_accumulate(*args), cuda_p2g.p2g_accumulate(*args))
 
 
 @pytest.mark.parametrize("shape", [(13, 9, 17), (20, 12, 24), (8, 8, 200)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_p2g_kernel_at_shapes(dev, shape):
-    """Ragged tiles and z-columns of many tiles: every tile shape against
-    the plain version, and bit-equal to each other."""
+    """Ragged tiles and z-columns of many tiles, against the plain
+    version."""
     cfg = _shape_cfg(shape)
     pcs, vels, start = _random_particles(dev, cfg, 4 * shape[0] * shape[1] * shape[2], sum(shape))
-    got = [cuda_p2g.p2g_accumulate(cfg, pcs, vels, start, tile=t) for t in cuda_p2g.TILES]
-    _p2g_close(cfg, got[0], cuda_p2g.p2g_accumulate_plain(cfg, pcs, vels))
-    for other in got[1:]:
-        assert _p2g_equal(got[0], other)
+    got = cuda_p2g.p2g_accumulate(cfg, pcs, vels, start)
+    _p2g_close(cfg, got, cuda_p2g.p2g_accumulate_plain(cfg, pcs, vels))
 
 
 def test_p2g_kernel_crammed(dev):
@@ -305,8 +300,10 @@ def test_wrappers_reject_bad_arguments(dev):
         cuda_sor.sor_pressure(CFG, phi, phi, torch.zeros((N, N, N + 1), device=dev))
     pcs = torch.zeros((10, 3), device=dev)
     start = torch.zeros(N**3 + 1, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="tile"):
-        cuda_p2g.p2g_accumulate(CFG, pcs, pcs, start, tile=(3, 3))
+    with pytest.raises(ValueError, match="shape"):
+        cuda_p2g.p2g_accumulate(CFG, pcs, pcs, start[:-1])
+    with pytest.raises(ValueError, match="int32"):
+        cuda_p2g.p2g_accumulate(CFG, pcs, pcs, start.long())
 
 
 def _mac_grids(dev, shape, seed=0):

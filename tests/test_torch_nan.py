@@ -29,6 +29,7 @@ import fluidsimulation_tpu_torch as ft
 from fluidsimulation_tpu_torch.core.interp import interp_mac3
 from fluidsimulation_tpu_torch.ops import cuda_p2g
 from fluidsimulation_tpu_torch.ops.binning import build_csr
+from fluidsimulation_tpu_torch.ops.common import cell_of, far_cell
 from fluidsimulation_tpu_torch.ops.levelset import seed_own_cell
 from fluidsimulation_tpu_torch.solver.step3d import step_guarded
 
@@ -132,6 +133,33 @@ def test_build_csr_puts_nan_past_the_last_cell():
     assert torch.equal(csr.start, clean.start)
     assert torch.equal(csr.cell[: n - 2], clean.cell)
     assert torch.equal(keep[clean.order], csr.order[: n - 2])
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (1000, 1000, 1001), (1024, 1024, 1024),
+                                   (2048, 2048, 2048), (1, 1, 5000)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_far_cell_is_past_every_cell(shape):
+    """The far cell is exact in float32 and takes the linear id of a particle
+    with only its z coordinate non-finite, at cx = cy = 0, to ncell or past,
+    also where ncell is over 10^9."""
+    nx, ny, nz = shape
+    cfg = dataclasses.replace(ft.SimConfig(), nx=nx, ny=ny, nz=nz)
+    far = far_cell(cfg)
+    assert float(torch.tensor(far, dtype=torch.float32)) == far
+    c = cell_of(torch.tensor([[0.0, 0.0, float("nan")]]), far)
+    assert int((c[0, 0] * ny + c[0, 1]) * nz + c[0, 2]) >= nx * ny * nz
+
+
+def test_build_csr_puts_a_nan_z_at_the_first_column_past_the_last_cell():
+    """Only z is NaN, and x and y are in the first cell: the particle still
+    sorts past every cell, on a grid with one x-y column."""
+    cfg = dataclasses.replace(ft.SimConfig(), nx=1, ny=1, nz=40)
+    pos = torch.rand(50, 3, generator=torch.Generator().manual_seed(3))
+    pos *= torch.tensor([0.45, 0.45, 0.97])
+    pos[7, 2] = float("nan")
+    csr = build_csr(cfg, pos)
+    assert int(csr.start[40]) == 49
+    assert int(csr.order[-1]) == 7 and int(csr.cell[-1]) == 40
 
 
 def test_nan_particle_takes_no_part_in_seed_or_p2g():

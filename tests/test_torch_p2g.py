@@ -106,19 +106,17 @@ def test_p2g_gather_window_covers_every_face():
 
 
 
-def test_p2g_tile_argument_on_the_cpu():
-    """The default tile is one the kernel has; on a CPU tensor any tile
-    gives the plain version, bit for bit, and launches nothing."""
-    assert cuda_p2g.TILE in cuda_p2g.TILES
+def test_p2g_wrapper_on_the_cpu_is_the_plain_version():
+    """On a CPU tensor the wrapper gives the plain version, bit for bit,
+    and launches nothing."""
     pos, vel = _seeded(7, 0)
     tp, tv = torch.from_numpy(pos) * N, torch.from_numpy(vel)
     csr = build_csr(CFG, torch.from_numpy(pos))
     before = cuda_p2g.KERNEL.launches
     want = cuda_p2g.p2g_accumulate_plain(CFG, tp[csr.order], tv[csr.order])
-    for tile in cuda_p2g.TILES:
-        got = cuda_p2g.p2g_accumulate(CFG, tp[csr.order], tv[csr.order], csr.start, tile=tile)
-        for (a, m), (aw, mw) in zip(got, want):
-            assert torch.equal(a, aw) and torch.equal(m, mw)
+    got = cuda_p2g.p2g_accumulate(CFG, tp[csr.order], tv[csr.order], csr.start)
+    for (a, m), (aw, mw) in zip(got, want):
+        assert torch.equal(a, aw) and torch.equal(m, mw)
     assert cuda_p2g.KERNEL.launches == before
 
 
