@@ -1,5 +1,5 @@
 // Fused FLIP gather: per particle, the FLIP velocity and the next step's
-// RK3 stage 1, both interpolated at the particle.
+// RK3 stage 1, both interpolated at the particle, walked in CSR order.
 //
 // Replaces fluidsimulation_tpu/core/pallas_pairpack.py::_pair_pack_component
 // (via pack_mac3_pair_pallas) together with the packed pair interpolation it
@@ -7,23 +7,32 @@
 // ops/flip.py::flip_update_carry). The pair pack exists only so that the
 // TPU can gather 1 KB rows (pallas_pairpack.py:31-33); what the step needs
 // from it is two interpolations at each particle:
-//   diff = interp(du, dv, dw)   with dg = g - (1-alpha) * g_old  (PyTorch)
+//   diff = interp(du, dv, dw)   with dg = g - beta * g_old, beta = 1 - alpha
 //   k1   = interp(u, v, w)
-//   vel' = (1-alpha) * vel + diff
+//   vel' = beta * vel + diff
 // with the semantics of core/interp.py::interp_mac3, including the top-edge
 // index decrements: min(floor(n), m-2) on normal axes and min(floor(e), m-1)
 // on the staggered axis.
 //
 // Bound on the H100: device-memory bytes of the particle streams. A
-// particle reads 24 B (pos, vel), gathers 2 x 3 x 8 grid values and writes
-// 24 B (vel', k1): 96 MB of particle traffic at 1M particles, ~29 us at
-// 3.35 TB/s. The six grids (6 x 8.4 MB at 128^3) sit in L2, and particles
-// that are near in index are near in space (dam-break seeding order), so
-// the gathers mostly hit L2.
-// Design: one thread per particle, one pass in place of the pack plus two
-// packed gathers. Compiled with -fmad=false, so each lerp rounds like the
-// plain version's separate multiply and add. A particle with a NaN
-// coordinate reads in-range cells and returns NaN for vel' and k1, as the
+// particle reads 24 B (position, velocity) and writes 24 B (vel', k1), and
+// the six grids are read once: 48 MB of particle traffic and 50 MB of grids
+// at 1M particles and 128^3, about 29 us at 3.35 TB/s. The sorted order and
+// the CSR offsets it is walked by count against the kernel, not the bound.
+//
+// Design: one thread a sorted slot. Thread s takes slot s of the CSR order,
+// so the 32 lanes of a warp lie in one or a few neighbouring cells, their
+// corner loads fall on a few lines, and the L1 serves their neighbours;
+// positions and velocities, already in CSR order, are read coalesced. vel'
+// and k1 are written to the particle's original index, order[s], so the
+// state keeps the JAX package's particle order. There is no per-cell loop,
+// so a pile of thousands in one cell is only more slots. The diff grids are
+// formed at each corner, dg = g - beta * g_old: one product and one
+// difference, the plain version's rounding under -fmad=false; the kernel
+// reads g and g_old where the step once built dg in six elementwise
+// launches, and makes as many loads. Every slot is covered, the non-finite
+// positions that the CSR index keeps past start[ncell] included: such a
+// particle reads in-range cells and returns NaN for vel' and k1, as the
 // plain version does.
 #include "common.cuh"
 
@@ -61,66 +70,86 @@ __device__ __forceinline__ float lerp(float a, float b, float t) {
   return a + (b - a) * t;
 }
 
-// Trilinear interpolation of the grid g of shape (., sy, sz), in the lerp
-// order of core/interp.py::_trilerp.
-__device__ __forceinline__ float trilerp(const float* __restrict__ g, int sy,
-                                         int sz, Split x, Split y, Split z) {
-  const long long dx = static_cast<long long>(sy) * sz;
-  const long long dy = sz;
-  const float* c = g + (static_cast<long long>(x.i) * sy + y.i) * sz + z.i;
-  const float t00 = lerp(c[0], c[dx], x.f);
-  const float t10 = lerp(c[dy], c[dx + dy], x.f);
-  const float t01 = lerp(c[1], c[dx + 1], x.f);
-  const float t11 = lerp(c[dy + 1], c[dx + dy + 1], x.f);
+// Trilinear interpolation of 8 corner values c[(z * 2 + y) * 2 + x], in the
+// lerp order of core/interp.py::_trilerp.
+__device__ __forceinline__ float trilerp(const float (&c)[8], Split x, Split y, Split z) {
+  const float t00 = lerp(c[0], c[1], x.f);
+  const float t10 = lerp(c[2], c[3], x.f);
+  const float t01 = lerp(c[4], c[5], x.f);
+  const float t11 = lerp(c[6], c[7], x.f);
   const float tx0 = lerp(t00, t10, y.f);
   const float tx1 = lerp(t01, t11, y.f);
   return lerp(tx0, tx1, z.f);
 }
 
-__global__ void g2p_flip_kernel(const float* __restrict__ pos,
-                                const float* __restrict__ vel,
-                                const float* __restrict__ du,
-                                const float* __restrict__ dv,
-                                const float* __restrict__ dw,
+struct Pair {
+  float diff;   // interp(g - beta * g_old)
+  float value;  // interp(g)
+};
+
+// Both interpolations of one component, whose grids g and g_old have shape
+// (., sy, sz).
+__device__ __forceinline__ Pair trilerp_pair(const float* __restrict__ g,
+                                             const float* __restrict__ g_old, float beta,
+                                             int sy, int sz, Split x, Split y, Split z) {
+  const long long dx = static_cast<long long>(sy) * sz;
+  const long long base = (static_cast<long long>(x.i) * sy + y.i) * sz + z.i;
+  float value[8], diff[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const long long at = base + (k & 1) * dx + ((k >> 1) & 1) * sz + (k >> 2);
+    value[k] = g[at];
+    diff[k] = value[k] - beta * g_old[at];
+  }
+  return {trilerp(diff, x, y, z), trilerp(value, x, y, z)};
+}
+
+__global__ void g2p_flip_kernel(const long long* __restrict__ order,
+                                const float* __restrict__ pcs,
+                                const float* __restrict__ vels,
                                 const float* __restrict__ u,
                                 const float* __restrict__ v,
                                 const float* __restrict__ w,
+                                const float* __restrict__ old_u,
+                                const float* __restrict__ old_v,
+                                const float* __restrict__ old_w,
                                 float* __restrict__ vel_out,
                                 float* __restrict__ k1, long long n, int nx,
                                 int ny, int nz, float beta) {
-  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (t >= n) return;
-  const float pi = pos[3 * t + 0] * static_cast<float>(nx);
-  const float pj = pos[3 * t + 1] * static_cast<float>(ny);
-  const float pk = pos[3 * t + 2] * static_cast<float>(nz);
+  const long long s = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (s >= n) return;
+  const float pi = pcs[3 * s + 0];
+  const float pj = pcs[3 * s + 1];
+  const float pk = pcs[3 * s + 2];
   const Split I = split_normal(pi, nx), J = split_normal(pj, ny),
               K = split_normal(pk, nz);
   const Split EI = split_extended(pi, nx), EJ = split_extended(pj, ny),
               EK = split_extended(pk, nz);
 
   // U is (nx+1, ny, nz), V is (nx, ny+1, nz), W is (nx, ny, nz+1).
-  const float diff_u = trilerp(du, ny, nz, EI, J, K);
-  const float diff_v = trilerp(dv, ny + 1, nz, I, EJ, K);
-  const float diff_w = trilerp(dw, ny, nz + 1, I, J, EK);
-  k1[3 * t + 0] = trilerp(u, ny, nz, EI, J, K);
-  k1[3 * t + 1] = trilerp(v, ny + 1, nz, I, EJ, K);
-  k1[3 * t + 2] = trilerp(w, ny, nz + 1, I, J, EK);
-  vel_out[3 * t + 0] = beta * vel[3 * t + 0] + diff_u;
-  vel_out[3 * t + 1] = beta * vel[3 * t + 1] + diff_v;
-  vel_out[3 * t + 2] = beta * vel[3 * t + 2] + diff_w;
+  const Pair U = trilerp_pair(u, old_u, beta, ny, nz, EI, J, K);
+  const Pair V = trilerp_pair(v, old_v, beta, ny + 1, nz, I, EJ, K);
+  const Pair W = trilerp_pair(w, old_w, beta, ny, nz + 1, I, J, EK);
+  const long long t = order[s];
+  k1[3 * t + 0] = U.value;
+  k1[3 * t + 1] = V.value;
+  k1[3 * t + 2] = W.value;
+  vel_out[3 * t + 0] = beta * vels[3 * s + 0] + U.diff;
+  vel_out[3 * t + 1] = beta * vels[3 * s + 1] + V.diff;
+  vel_out[3 * t + 2] = beta * vels[3 * s + 2] + W.diff;
 }
 
 }  // namespace
 
-extern "C" int fst_g2p_flip(const float* pos, const float* vel,
-                            const float* du, const float* dv, const float* dw,
+extern "C" int fst_g2p_flip(const long long* order, const float* pcs, const float* vels,
                             const float* u, const float* v, const float* w,
+                            const float* old_u, const float* old_v, const float* old_w,
                             float* vel_out, float* k1, long long n, int nx,
                             int ny, int nz, float beta, void* stream) {
   if (n > 0) {
     g2p_flip_kernel<<<fst::blocks_for(n), fst::kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-        pos, vel, du, dv, dw, u, v, w, vel_out, k1, n, nx, ny, nz, beta);
+        order, pcs, vels, u, v, w, old_u, old_v, old_w, vel_out, k1, n, nx, ny, nz, beta);
   }
   return static_cast<int>(cudaGetLastError());
 }

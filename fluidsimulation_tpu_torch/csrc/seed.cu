@@ -7,14 +7,31 @@
 // updated on strict `<` in (dx, dy, dz) order, so the first winner stays.
 // A neighbour outside the grid reads as the FAR candidate.
 //
-// Bound on the H100: device-memory bytes. A cell reads 27 candidates of
-// 12 B and writes 16 B, about 30 flops of work each. The 27 re-reads of a
-// candidate fall in L1/L2 (the 128^3 candidate field is 25 MB, inside the
-// 50 MB L2), so DRAM sees about one read and one write per cell: 59 MB per
-// call at 128^3, about 18 us at 3.35 TB/s.
-// Design: one thread per cell with z fastest across a warp, so the 27
-// neighbour reads of a warp are contiguous runs. No shared-memory tile in
-// this first version; the L1 serves the halo.
+// Bound on the H100: device-memory bytes, the candidate field read once and
+// phi and cpos written once: 28 B a cell, 59 MB at 128^3, about 18 us at
+// 3.35 TB/s. What held the first, one-thread-a-cell form back was its issue
+// rate: 81 scalar loads of the AoS field, a 6-way bounds test and an IEEE
+// sqrt for every one of the 27 candidates, about 30 instructions each.
+//
+// Design:
+//   * A block owns a tile of kCX x kTY x kTZ cells. Its warps are kTY
+//     consecutive y, its lanes 32 consecutive z, and each thread walks kCX
+//     cells along x, so the stores of a warp are contiguous runs.
+//   * The tile's candidates, grown by one cell on each side, are staged in
+//     shared memory as three SoA float planes. Each halo row is a
+//     contiguous run of the (nx, ny, nz, 3) field, read coalesced; FAR is
+//     written where the halo leaves the grid, so the inner loop makes no
+//     bounds test.
+//   * Walking x, a thread keeps the candidates of three x-planes (9 each) in
+//     registers and loads only the next plane's 9 for the next cell.
+//   * The filter: d2 = ex^2 + ey^2 + ez^2 in the plain version's order, and
+//     the sqrt and the strict `<` only where d2 is below the current best's
+//     d2. sqrtf is correctly rounded, so it is monotone non-decreasing, and
+//     so is subtracting r under round-to-nearest: d2 >= best_d2 implies
+//     dist >= best, which the strict `<` rejects anyway. Near-ties whose
+//     sqrt rounds equal still go through the real compare, so the first
+//     winner is kept as before, ties included.
+// Any nx, ny, nz >= 1: a tile past the grid's edge is masked.
 //
 // Compile with -fmad=false: a contracted multiply-add changes dist in the
 // last bit, a `<` tie then picks another candidate, and cpos stops matching
@@ -23,47 +40,108 @@
 
 namespace {
 
-__global__ void neighborhood_pass_kernel(const float* __restrict__ cpos0,
-                                         float* __restrict__ phi,
-                                         float* __restrict__ cpos, int nx,
-                                         int ny, int nz, float r) {
-  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  const long long ncell = static_cast<long long>(nx) * ny * nz;
-  if (t >= ncell) return;
-  const int z = static_cast<int>(t % nz);
-  const int y = static_cast<int>((t / nz) % ny);
-  const int x = static_cast<int>(t / (static_cast<long long>(ny) * nz));
-  const float fx = static_cast<float>(x);
-  const float fy = static_cast<float>(y);
-  const float fz = static_cast<float>(z);
+constexpr int kTZ = 32;  // cells a tile along z: a warp's lanes
 
-  float best = CUDART_INF_F;
-  float bx = fst::kFar, by = fst::kFar, bz = fst::kFar;
-  for (int dx = -1; dx <= 1; ++dx) {
-    for (int dy = -1; dy <= 1; ++dy) {
-      for (int dz = -1; dz <= 1; ++dz) {
-        const int X = x + dx, Y = y + dy, Z = z + dz;
-        float ax = fst::kFar, ay = fst::kFar, az = fst::kFar;
-        if (X >= 0 && X < nx && Y >= 0 && Y < ny && Z >= 0 && Z < nz) {
-          const float* c = cpos0 + 3 * ((static_cast<long long>(X) * ny + Y) * nz + Z);
-          ax = c[0];
-          ay = c[1];
-          az = c[2];
-        }
-        const float dist = fst::dist3(ax, ay, az, fx, fy, fz) - r;
-        if (dist < best) {
-          best = dist;
-          bx = ax;
-          by = ay;
-          bz = az;
-        }
+// The candidates of one x-plane around a thread's cell: (dy, dz) in
+// row-major order, dy and dz in -1, 0, 1.
+struct Plane {
+  float x[9], y[9], z[9];
+};
+
+struct Best {
+  float dist = CUDART_INF_F;
+  float d2 = CUDART_INF_F;
+  float x = fst::kFar, y = fst::kFar, z = fst::kFar;
+};
+
+__device__ __forceinline__ void load_plane(Plane& p, const float* sx, const float* sy,
+                                           const float* sz, int base) {
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const int h = base + (k / 3) * (kTZ + 2) + k % 3;
+    p.x[k] = sx[h];
+    p.y[k] = sy[h];
+    p.z[k] = sz[h];
+  }
+}
+
+__device__ __forceinline__ void visit(const Plane& p, float fx, float fy, float fz, float r,
+                                      Best& b) {
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const float ex = p.x[k] - fx;
+    const float ey = p.y[k] - fy;
+    const float ez = p.z[k] - fz;
+    const float d2 = ex * ex + ey * ey + ez * ez;
+    if (d2 < b.d2) {
+      const float dist = sqrtf(d2) - r;
+      if (dist < b.dist) {
+        b.dist = dist;
+        b.d2 = d2;
+        b.x = p.x[k];
+        b.y = p.y[k];
+        b.z = p.z[k];
       }
     }
   }
-  phi[t] = best;
-  cpos[3 * t + 0] = bx;
-  cpos[3 * t + 1] = by;
-  cpos[3 * t + 2] = bz;
+}
+
+template <int CX, int TY>
+__global__ void __launch_bounds__(TY * kTZ)
+    neighborhood_pass_kernel(const float* __restrict__ cpos0, float* __restrict__ phi,
+                             float* __restrict__ cpos, int nx, int ny, int nz, float r) {
+  constexpr int kHX = CX + 2, kHY = TY + 2, kHZ = kTZ + 2;
+  constexpr int kHalo = kHX * kHY * kHZ;
+  constexpr int kRow = 3 * kHZ;  // floats of one halo row of the field
+  __shared__ float sx[kHalo], sy[kHalo], sz[kHalo];
+
+  const int x0 = blockIdx.x * CX, y0 = blockIdx.y * TY, z0 = blockIdx.z * kTZ;
+  for (int q = threadIdx.x; q < kHX * kHY * kRow; q += TY * kTZ) {
+    const int row = q / kRow, f = q - row * kRow;
+    const int hz = f / 3, comp = f - 3 * hz;
+    const int hx = row / kHY, hy = row - hx * kHY;
+    const int X = x0 - 1 + hx, Y = y0 - 1 + hy, Z = z0 - 1 + hz;
+    float val = fst::kFar;
+    if (X >= 0 && X < nx && Y >= 0 && Y < ny && Z >= 0 && Z < nz) {
+      val = cpos0[3 * ((static_cast<long long>(X) * ny + Y) * nz + Z) + comp];
+    }
+    float* plane = comp == 0 ? sx : (comp == 1 ? sy : sz);
+    plane[row * kHZ + hz] = val;
+  }
+  __syncthreads();
+
+  const int ty = threadIdx.x / kTZ, tz = threadIdx.x % kTZ;
+  const int y = y0 + ty, z = z0 + tz;
+  if (y >= ny || z >= nz) return;
+  const float fy = static_cast<float>(y), fz = static_cast<float>(z);
+  Plane p[3];
+  load_plane(p[0], sx, sy, sz, (0 * kHY + ty) * kHZ + tz);
+  load_plane(p[1], sx, sy, sz, (1 * kHY + ty) * kHZ + tz);
+#pragma unroll
+  for (int i = 0; i < CX; ++i) {
+    const int x = x0 + i;
+    if (x >= nx) break;
+    load_plane(p[(i + 2) % 3], sx, sy, sz, ((i + 2) * kHY + ty) * kHZ + tz);
+    const float fx = static_cast<float>(x);
+    Best b;
+    visit(p[i % 3], fx, fy, fz, r, b);
+    visit(p[(i + 1) % 3], fx, fy, fz, r, b);
+    visit(p[(i + 2) % 3], fx, fy, fz, r, b);
+    const long long t = (static_cast<long long>(x) * ny + y) * nz + z;
+    phi[t] = b.dist;
+    cpos[3 * t + 0] = b.x;
+    cpos[3 * t + 1] = b.y;
+    cpos[3 * t + 2] = b.z;
+  }
+}
+
+template <int CX, int TY>
+int launch(const float* cpos0, float* phi, float* cpos, int nx, int ny, int nz, float r,
+           cudaStream_t stream) {
+  const dim3 grid((nx + CX - 1) / CX, (ny + TY - 1) / TY, (nz + kTZ - 1) / kTZ);
+  neighborhood_pass_kernel<CX, TY><<<grid, TY * kTZ, 0, stream>>>(cpos0, phi, cpos, nx, ny,
+                                                                 nz, r);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -71,11 +149,23 @@ __global__ void neighborhood_pass_kernel(const float* __restrict__ cpos0,
 extern "C" int fst_neighborhood_pass(const float* cpos0, float* phi, float* cpos,
                                      int nx, int ny, int nz, float r,
                                      void* stream) {
-  const long long n = static_cast<long long>(nx) * ny * nz;
-  if (n > 0) {
-    neighborhood_pass_kernel<<<fst::blocks_for(n), fst::kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        cpos0, phi, cpos, nx, ny, nz, r);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (static_cast<long long>(nx) * ny * nz == 0) return static_cast<int>(cudaGetLastError());
+  return launch<4, 8>(cpos0, phi, cpos, nx, ny, nz, r, static_cast<cudaStream_t>(stream));
+}
+
+// Tile trial: the same kernel with the tile (cx cells a thread along x, ty
+// warps along y) chosen by the caller. Returns cudaErrorInvalidValue for a
+// tile that is not built.
+extern "C" int fst_neighborhood_pass_tile(const float* cpos0, float* phi, float* cpos,
+                                          int nx, int ny, int nz, float r, int cx, int ty,
+                                          void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (static_cast<long long>(nx) * ny * nz == 0) return static_cast<int>(cudaGetLastError());
+  if (cx == 1 && ty == 8) return launch<1, 8>(cpos0, phi, cpos, nx, ny, nz, r, s);
+  if (cx == 2 && ty == 8) return launch<2, 8>(cpos0, phi, cpos, nx, ny, nz, r, s);
+  if (cx == 4 && ty == 8) return launch<4, 8>(cpos0, phi, cpos, nx, ny, nz, r, s);
+  if (cx == 8 && ty == 8) return launch<8, 8>(cpos0, phi, cpos, nx, ny, nz, r, s);
+  if (cx == 4 && ty == 4) return launch<4, 4>(cpos0, phi, cpos, nx, ny, nz, r, s);
+  if (cx == 8 && ty == 4) return launch<8, 4>(cpos0, phi, cpos, nx, ny, nz, r, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,6 +15,10 @@ The NaN rule (JAX's: NaN in, NaN out, no raise): a particle whose position
 is not finite gets the id ncell, past every cell. Its slots follow
 start[ncell], so no stage that walks cells reads it, and csr.cell holds
 ncell there.
+
+A step gathers its particles into CSR order once (``sort_particles``): the
+level-set seed, P2G and the FLIP gather all read the same sorted positions
+and velocities.
 """
 
 from __future__ import annotations
@@ -35,6 +39,13 @@ class CSR:
     #                      counts the finite particles
 
 
+@dataclasses.dataclass
+class SortedParticles:
+    csr: CSR
+    pcs: torch.Tensor   # (N, 3) float32: (pos * cell_scale(cfg))[csr.order], the floats build_csr binned
+    vels: torch.Tensor  # (N, 3) float32: vel[csr.order]
+
+
 def build_csr(cfg: SimConfig, pos) -> CSR:
     nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
     ncell = nx * ny * nz
@@ -46,3 +57,9 @@ def build_csr(cfg: SimConfig, pos) -> CSR:
     start = torch.zeros(ncell + 1, dtype=torch.int32, device=pos.device)
     start[1:] = torch.cumsum(counts, 0)
     return CSR(order=order, cell=cell, start=start)
+
+
+def sort_particles(cfg: SimConfig, csr: CSR, pos, vel) -> SortedParticles:
+    """The particles in the CSR order of ``csr = build_csr(cfg, pos)``: one
+    gather of the cell-unit positions and the velocities."""
+    return SortedParticles(csr, (pos * cell_scale(cfg, pos.device))[csr.order], vel[csr.order])

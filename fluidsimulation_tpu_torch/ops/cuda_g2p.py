@@ -2,10 +2,14 @@
 version.
 
 Replaces fluidsimulation_tpu/core/pallas_pairpack.py (the [diff | new] pair
-pack) together with the packed pair interpolation it feeds. Given the diff
-grids dg = g - (1-alpha)*g_old and the new grids g, it returns
-vel' = (1-alpha)*vel + interp(dg) and k1 = interp(g) at each particle. A CPU
-tensor takes the plain version; a CUDA tensor launches the kernel.
+pack) together with the packed pair interpolation it feeds. Given the new
+grids g = (u, v, w), the snapshot g_old taken before gravity and the
+projection, and the particles in CSR order, it returns
+vel' = beta*vel + interp(g - beta*g_old) and k1 = interp(g) at each
+particle, in the particles' original order (beta = 1 - alpha). The kernel
+walks the sorted slots and forms the diff grids at each corner; the plain
+version forms them in PyTorch. A CPU tensor takes the plain version; a CUDA
+tensor launches the kernel.
 """
 
 from __future__ import annotations
@@ -15,41 +19,49 @@ import torch
 from .. import _build
 from ..core.config import SimConfig
 from ..core.interp import interp_mac3_vec
-from .common import cell_scale
 
 KERNEL = _build.Kernel(
     "fst_g2p_flip",
-    [_build.P] * 10 + [_build.L, _build.I, _build.I, _build.I, _build.F],
+    [_build.P] * 11 + [_build.L, _build.I, _build.I, _build.I, _build.F],
 )
 
 
-def g2p_flip_plain(cfg: SimConfig, pos, vel, du, dv, dw, u, v, w, beta):
-    pc = pos * cell_scale(cfg, pos.device)
-    diff = interp_mac3_vec(du, dv, dw, pc)
-    k1 = interp_mac3_vec(u, v, w, pc)
-    return beta * vel + diff, k1
+def g2p_flip_plain(cfg: SimConfig, order, pcs, vels, u, v, w, old_u, old_v, old_w, beta):
+    diff = interp_mac3_vec(u - beta * old_u, v - beta * old_v, w - beta * old_w, pcs)
+    k1 = interp_mac3_vec(u, v, w, pcs)
+    vel_out, k1_out = torch.empty_like(vels), torch.empty_like(k1)
+    vel_out[order] = beta * vels + diff
+    k1_out[order] = k1
+    return vel_out, k1_out
 
 
-def g2p_flip(cfg: SimConfig, pos, vel, du, dv, dw, u, v, w, beta):
-    """pos (N, 3) in meters, vel (N, 3); du, dv, dw and u, v, w MAC grids;
-    beta = 1 - alpha. Returns (vel', k1), each (N, 3)."""
-    if pos.device.type == "cpu":
-        return g2p_flip_plain(cfg, pos, vel, du, dv, dw, u, v, w, beta)
-    n = pos.shape[0]
-    dev = _build.same_device(pos, vel, du, dv, dw, u, v, w)
+def g2p_flip(cfg: SimConfig, order, pcs, vels, u, v, w, old_u, old_v, old_w, beta):
+    """order (N,) int64: the original index of each sorted slot (csr.order,
+    a permutation of 0..N-1, which the kernel does not check); pcs (N, 3)
+    positions in cell units and vels (N, 3), both in that order (see
+    ops/binning.py::sort_particles); u, v, w and old_u, old_v, old_w MAC
+    grids; beta = 1 - alpha. Returns (vel', k1), each (N, 3), in the
+    original order."""
+    if pcs.device.type == "cpu":
+        return g2p_flip_plain(cfg, order, pcs, vels, u, v, w, old_u, old_v, old_w, beta)
+    n = pcs.shape[0]
+    dev = _build.same_device(order, pcs, vels, u, v, w, old_u, old_v, old_w)
     shapes = (cfg.u_shape(), cfg.v_shape(), cfg.w_shape())
     grids = [
         _build.check(g, name, shape)
         for g, name, shape in zip(
-            (du, dv, dw, u, v, w), ("du", "dv", "dw", "u", "v", "w"), shapes * 2
+            (u, v, w, old_u, old_v, old_w),
+            ("u", "v", "w", "old_u", "old_v", "old_w"),
+            shapes * 2,
         )
     ]
     vel_out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     k1 = torch.empty((n, 3), dtype=torch.float32, device=dev)
     KERNEL.launch(
         dev,
-        _build.check(pos, "pos", (n, 3)),
-        _build.check(vel, "vel", (n, 3)),
+        _build.check(order, "order", (n,), torch.int64),
+        _build.check(pcs, "pcs", (n, 3)),
+        _build.check(vels, "vels", (n, 3)),
         *grids,
         vel_out.data_ptr(), k1.data_ptr(),
         n, cfg.nx, cfg.ny, cfg.nz, float(beta),

@@ -2,7 +2,10 @@
 (csrc/seed.cu) and its plain PyTorch version.
 
 Replaces fluidsimulation_tpu/ops/pallas_seed.py::neighborhood_pass_pallas.
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+The kernel stages a tile's candidates through shared memory and takes the
+square root only for a candidate whose squared distance beats the best's;
+it is bit for bit the plain version. A CPU tensor takes the plain version;
+a CUDA tensor launches the kernel.
 """
 
 from __future__ import annotations
@@ -21,6 +24,13 @@ KERNEL = _build.Kernel(
     "fst_neighborhood_pass",
     [_build.P, _build.P, _build.P, _build.I, _build.I, _build.I, _build.F],
 )
+# Tile trial only: the kernel at another tile (cells a thread along x, warps
+# along y).
+TILE_KERNEL = _build.Kernel(
+    "fst_neighborhood_pass_tile",
+    [_build.P, _build.P, _build.P, _build.I, _build.I, _build.I, _build.F, _build.I, _build.I],
+)
+TILES = ((1, 8), (2, 8), (4, 8), (8, 8), (4, 4), (8, 4))
 
 
 def dist(ax, ay, az, bx, by, bz):
@@ -66,5 +76,18 @@ def neighborhood_pass(cfg: SimConfig, cpos0):
     KERNEL.launch(
         cpos0.device, src, phi.data_ptr(), cpos.data_ptr(),
         nx, ny, nz, float(cfg.particle_radius),
+    )
+    return phi, cpos
+
+
+def neighborhood_pass_tile(cfg: SimConfig, cpos0, tile):
+    """The kernel at ``tile`` = (cx, ty), one of TILES (tile trial)."""
+    nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
+    src = _build.check(cpos0, "cpos0", (nx, ny, nz, 3))
+    phi = torch.empty((nx, ny, nz), dtype=torch.float32, device=cpos0.device)
+    cpos = torch.empty((nx, ny, nz, 3), dtype=torch.float32, device=cpos0.device)
+    TILE_KERNEL.launch(
+        cpos0.device, src, phi.data_ptr(), cpos.data_ptr(),
+        nx, ny, nz, float(cfg.particle_radius), *tile,
     )
     return phi, cpos

@@ -25,17 +25,17 @@ __all__ = [
 ]
 
 
-def seed_own_cell(cfg: SimConfig, csr: CSR, pc):
+def seed_own_cell(cfg: SimConfig, csr: CSR, pcs):
     """Each cell's closest own particle.
 
-    pc: (N, 3) positions in cell units, in original order. Returns cpos0
+    pcs: (N, 3) positions in cell units, in the CSR order of ``csr``
+    (ops/binning.py::sort_particles). Returns cpos0
     (nx, ny, nz, 3) in cell units, FAR where a cell holds no particle. A
     particle whose position is not finite has csr.cell = ncell: it lands in
     an extra last entry of the scatters, which is dropped."""
     nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
     ncell = nx * ny * nz
-    dev = pc.device
-    pcs = pc[csr.order]
+    dev = pcs.device
     cf = cell_of(pcs, far_cell(cfg)).float()
     d = dist(pcs[:, 0], pcs[:, 1], pcs[:, 2], cf[:, 0], cf[:, 1], cf[:, 2]) - cfg.particle_radius
     best = torch.full((ncell + 1,), float("inf"), dtype=torch.float32, device=dev)
@@ -52,8 +52,9 @@ def seed_own_cell(cfg: SimConfig, csr: CSR, pc):
     return cpos0.reshape(nx, ny, nz, 3)
 
 
-def compute_level_set(cfg: SimConfig, csr: CSR, pc):
-    """Seed, 27-neighbourhood pass and 24 sweeps. Returns (phi, cpos)."""
-    phi, cpos = neighborhood_pass(cfg, seed_own_cell(cfg, csr, pc))
+def compute_level_set(cfg: SimConfig, csr: CSR, pcs):
+    """Seed, 27-neighbourhood pass and 24 sweeps; pcs as seed_own_cell
+    takes them. Returns (phi, cpos)."""
+    phi, cpos = neighborhood_pass(cfg, seed_own_cell(cfg, csr, pcs))
     return sweep_closest(cfg, phi, cpos)
 

@@ -45,8 +45,8 @@ def transfer_to_grid(cfg: SimConfig, pos, vel):
     return _normalise(cfg, p2g_accumulate_plain(cfg, pos * cell_scale(cfg, pos.device), vel))
 
 
-def p2g_from_csr(cfg: SimConfig, csr: CSR, pos, vel):
-    """P2G by gather over the CSR index (ops/binning.py). Returns
+def p2g_from_csr(cfg: SimConfig, csr: CSR, pcs, vels):
+    """P2G by gather over the CSR index (ops/binning.py); pcs and vels are
+    the particles in its order (ops/binning.py::sort_particles). Returns
     (u, v, w, u_valid, v_valid, w_valid)."""
-    pcs = (pos * cell_scale(cfg, pos.device))[csr.order]
-    return _normalise(cfg, p2g_accumulate(cfg, pcs, vel[csr.order], csr.start))
+    return _normalise(cfg, p2g_accumulate(cfg, pcs, vels, csr.start))

@@ -2,7 +2,7 @@
 
 One frame in the order of GPFluidSim::Simulate (Simulation.cpp:513-566):
 
-  advect -> CSR particle index -> level set (seed, 27-neighbourhood pass,
+  advect -> CSR particle index and the sorted gather -> level set (seed, 27-neighbourhood pass,
   24 sweeps) -> P2G -> extrapolate -> snapshot old grids -> gravity ->
   project (RHS, diagonal, SOR x100, apply) -> FLIP update (+ next k1) ->
   blur phi
@@ -22,9 +22,8 @@ import numpy as np
 from ..core.config import SimConfig
 from ..core.state import SimState
 from ..ops.advect import advect_rk3, advect_rk3_cached
-from ..ops.binning import build_csr
+from ..ops.binning import build_csr, sort_particles
 from ..ops.blur import blur_phi
-from ..ops.common import cell_scale
 from ..ops.extrapolate import extrapolate_one_ring
 from ..ops.flip import flip_update_carry
 from ..ops.forces import add_gravity
@@ -53,8 +52,9 @@ def step(state: SimState, dt, cfg: SimConfig) -> SimState:
     vel = state.vel
 
     csr = build_csr(cfg, pos)
-    phi, _ = compute_level_set(cfg, csr, pos * cell_scale(cfg, pos.device))
-    u, v, w, uv, vv, wv = p2g_from_csr(cfg, csr, pos, vel)
+    walk = sort_particles(cfg, csr, pos, vel)  # the step's one sorted gather
+    phi, _ = compute_level_set(cfg, csr, walk.pcs)
+    u, v, w, uv, vv, wv = p2g_from_csr(cfg, csr, walk.pcs, walk.vels)
 
     u = extrapolate_one_ring(u, uv)
     v = extrapolate_one_ring(v, vv)
@@ -65,7 +65,7 @@ def step(state: SimState, dt, cfg: SimConfig) -> SimState:
     u, v, w, _ = project(cfg, u, v, w, phi, dt)
 
     alpha = pic_flip_alpha(cfg, dt)
-    vel, k1 = flip_update_carry(cfg, pos, vel, u, v, w, old_u, old_v, old_w, alpha)
+    vel, k1 = flip_update_carry(cfg, pos, vel, u, v, w, old_u, old_v, old_w, alpha, walk)
     phi = blur_phi(phi)
     return SimState(
         pos=pos, vel=vel, u=u, v=v, w=w, phi=phi,

@@ -4,10 +4,12 @@ dt 1/60), the demo's 64^3 ppc 2 (60 steps, dt 1/120) and 128^3 ppc 2 (10
 steps, dt 1/120). The last step's arguments to each kernel wrapper are kept
 and each kernel is timed on them by CUDA events: the 24 sweeps, the 8 sweeps
 of each axis alone (in their SWEEP_ORDER order), the SOR solve, P2G, the FLIP
-gather and the 27-neighbourhood pass. P2G launched twice on the same inputs
-must give equal results (``p2g_deterministic``); ``walk_stats`` says how its
-work lies over the cells. The median step (CUDA events, a sync after each
-step, the first two steps left out) comes with them.
+gather and the 27-neighbourhood pass, and the FLIP update as the step calls
+it (``flip_ms``: the diff grids and the gather where the checkout forms them
+in PyTorch). P2G, the FLIP gather and the pass launched twice on the same
+inputs must give equal results (``*_deterministic``); ``walk_stats`` says
+how P2G's work lies over the cells. The median step (CUDA events, a sync
+after each step, the first two steps left out) comes with them.
 
 Run on the card from the root of a checkout:
 
@@ -16,11 +18,14 @@ Run on the card from the root of a checkout:
 It imports the ``fluidsimulation_tpu_torch`` of the working directory, so a
 copy of this file at the root of an older checkout, run there as
 ``python kernel_times.py``, times that checkout's kernels. ``--dump DIR``
-saves each configuration's P2G inputs and outputs there; ``--against DIR``
-runs this checkout's P2G on inputs saved so (by another checkout) and
-reports whether its outputs equal the saved ones bit for bit
-(``p2g_equal_to_dump``). Prints one JSON line per configuration, with the
-card's name and power limit.
+saves each configuration's inputs and outputs of P2G, the pass and the FLIP
+update there; ``--against DIR`` runs this checkout's on inputs saved so (by
+another checkout) and reports whether its outputs equal the saved ones bit
+for bit (``p2g_equal_to_dump``, ``seed_equal_to_dump``,
+``flip_equal_to_dump``). The FLIP update is compared through
+``flip_update_carry(cfg, pos, vel, u, v, w, old_u, old_v, old_w, alpha)``,
+whose inputs every checkout takes and whose outputs are its gather's. Prints
+one JSON line per configuration, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ SITES = (
     ("ops.p2g", "p2g_accumulate", "p2g"),
     ("ops.project", "sor_pressure", "sor"),
     ("ops.flip", "g2p_flip", "g2p"),
+    ("solver.step3d", "flip_update_carry", "flip"),
 )
 
 
@@ -81,9 +87,44 @@ def sweep_runner(cuda_sweep):
     return sweeps
 
 
-def flat(pairs):
-    """P2G's [(acc, amt)] * 3 as a list of six tensors."""
-    return [t for pair in pairs for t in pair]
+def flat(out):
+    """A wrapper's outputs as a flat list of tensors (P2G's [(acc, amt)] *
+    3 as six)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for part in out for t in flat(part)]
+
+
+def same(a, b) -> bool:
+    """Equal tensors, NaN where the other has NaN."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+
+def against_dump(fn, args, key: str, row, dump: Path | None, against: Path | None,
+                 tag: str) -> None:
+    """Save fn's tensor arguments and outputs under ``dump``; or run fn on
+    arguments saved under ``against`` and record whether its outputs equal
+    the saved ones bit for bit. ``args`` is (cfg, *rest): tensors in rest
+    are saved and moved, other values kept."""
+    cfg, rest = args[0], args[1:]
+    if dump is not None:
+        dump.mkdir(parents=True, exist_ok=True)
+        torch.save({"args": [a.cpu() if isinstance(a, torch.Tensor) else a for a in rest],
+                    "out": [t.cpu() for t in flat(fn(*args))]}, dump / f"{tag}.{key}.pt")
+    if against is not None:
+        saved = torch.load(against / f"{tag}.{key}.pt", weights_only=False)
+        dev = args[1].device
+        theirs = flat(fn(cfg, *(a.to(dev) if isinstance(a, torch.Tensor) else a
+                                for a in saved["args"])))
+        want = [t.to(dev) for t in saved["out"]]
+        row[f"{key}_equal_to_dump"] = all(same(a, b) for a, b in zip(theirs, want))
+        row[f"{key}_max_abs_diff_to_dump"] = max(
+            float((a - b).nan_to_num(0.0).abs().max()) for a, b in zip(theirs, want))
+        del saved, theirs, want
+
+
+def deterministic(fn, args) -> bool:
+    return all(same(a, b) for a, b in zip(flat(fn(*args)), flat(fn(*args))))
 
 
 def walk_stats(cfg, start) -> dict:
@@ -112,31 +153,38 @@ def walk_stats(cfg, start) -> dict:
             "warp_step_efficiency": useful / (32 * steps)}
 
 
-def p2g_rows(cuda_p2g, args, row, dump: Path | None, against: Path | None, tag: str):
-    cfg, pcs, vels, start = args
-    row.update(walk_stats(cfg, start))
-    out = flat(cuda_p2g.p2g_accumulate(*args))
-    again = flat(cuda_p2g.p2g_accumulate(*args))
-    row["p2g_deterministic"] = all(torch.equal(a, b) for a, b in zip(out, again))
-    row["p2g_ms"] = cuda_ms(lambda: cuda_p2g.p2g_accumulate(*args))
-    if dump is not None:
-        dump.mkdir(parents=True, exist_ok=True)
-        torch.save({"args": [t.cpu() for t in (pcs, vels, start)], "out": [t.cpu() for t in out]},
-                   dump / f"{tag}.pt")
-    if against is not None:
-        saved = torch.load(against / f"{tag}.pt")
-        dev = pcs.device
-        theirs = flat(cuda_p2g.p2g_accumulate(cfg, *(t.to(dev) for t in saved["args"])))
-        want = [t.to(dev) for t in saved["out"]]
-        row["p2g_equal_to_dump"] = all(torch.equal(a, b) for a, b in zip(theirs, want))
-        row["p2g_max_abs_diff_to_dump"] = max(float((a - b).abs().max())
-                                              for a, b in zip(theirs, want))
-        del saved, theirs, want
+def g2p_permuted_ms(cuda_g2p, args) -> float | None:
+    """Permutation experiment, for a checkout whose FLIP gather takes the
+    particles in their original order, (cfg, pos, vel, du, dv, dw, u, v, w,
+    beta): its time with pos and vel permuted into CSR order beforehand (the
+    permutation outside the timed call). None for a gather that takes the
+    CSR order itself."""
+    from fluidsimulation_tpu_torch.ops.binning import build_csr
+
+    cfg, pos = args[0], args[1]
+    if not pos.dtype.is_floating_point:
+        return None
+    order = build_csr(cfg, pos).order
+    permuted = (cfg, pos[order].contiguous(), args[2][order].contiguous(), *args[3:])
+    return cuda_ms(lambda: cuda_g2p.g2p_flip(*permuted))
+
+
+def seed_tile_ms(cuda_seed, args) -> dict:
+    """Tile trial: the pass at each tile the checkout builds, bit for bit
+    its one-tile launch."""
+    out = {}
+    want = cuda_seed.neighborhood_pass(*args)
+    for tile in getattr(cuda_seed, "TILES", ()):
+        got = cuda_seed.neighborhood_pass_tile(*args, tile)
+        label = "x".join(map(str, tile))
+        out[f"seed_tile_{label}_equal"] = all(torch.equal(a, b) for a, b in zip(got, want))
+        out[f"seed_tile_{label}_ms"] = cuda_ms(lambda t=tile: cuda_seed.neighborhood_pass_tile(*args, t))
+    return out
 
 
 def main(argv=None) -> int:
     import fluidsimulation_tpu_torch as ft
-    from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep
+    from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep, flip
     from fluidsimulation_tpu_torch.utils.profiling import hooked
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -181,9 +229,23 @@ def main(argv=None) -> int:
         row["sor_ms"] = cuda_ms(lambda: cuda_sor.sor_pressure(*captured["sor"]))
         row["fluid_cells"] = int((captured["sor"][1] < 0).sum())
         row["g2p_ms"] = cuda_ms(lambda: cuda_g2p.g2p_flip(*captured["g2p"]))
+        row["g2p_permuted_ms"] = g2p_permuted_ms(cuda_g2p, captured["g2p"])
+        row["flip_ms"] = cuda_ms(lambda: flip.flip_update_carry(*captured["flip"]))
         row["seed_ms"] = cuda_ms(lambda: cuda_seed.neighborhood_pass(*captured["seed"]))
-        p2g_rows(cuda_p2g, captured["p2g"], row, args.dump, args.against,
-                 label.replace("^", "").replace(" ", "_"))
+        row.update(seed_tile_ms(cuda_seed, captured["seed"]))
+        row.update(walk_stats(cfg, captured["p2g"][3]))
+        row["p2g_ms"] = cuda_ms(lambda: cuda_p2g.p2g_accumulate(*captured["p2g"]))
+        tag = label.replace("^", "").replace(" ", "_")
+        for key, fn, fn_args in (
+            ("p2g", cuda_p2g.p2g_accumulate, captured["p2g"]),
+            ("seed", cuda_seed.neighborhood_pass, captured["seed"]),
+            ("g2p", cuda_g2p.g2p_flip, captured["g2p"]),
+            ("flip", flip.flip_update_carry, captured["flip"][:10]),
+        ):
+            if key != "flip":
+                row[f"{key}_deterministic"] = deterministic(fn, fn_args)
+            if key != "g2p":
+                against_dump(fn, fn_args, key, row, args.dump, args.against, tag)
         print(json.dumps(row), flush=True)
         del state, captured, phi, cpos
         torch.cuda.empty_cache()

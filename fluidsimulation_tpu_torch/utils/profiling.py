@@ -40,6 +40,7 @@ SITES = [
     ("solver.step3d", "advect_rk3_cached", "advect (RK3)"),
     ("solver.step3d", "advect_rk3", "advect (RK3)"),
     ("solver.step3d", "build_csr", "CSR build"),
+    ("solver.step3d", "sort_particles", "sorted gather"),
     ("ops.levelset", "seed_own_cell", "own-cell seed"),
     ("ops.levelset", "neighborhood_pass", "27-neighbourhood pass"),
     ("ops.levelset", "sweep_closest", "24 sweeps"),

@@ -25,9 +25,11 @@ import torch
 
 import fluidsimulation_tpu_torch as ft
 from fluidsimulation_tpu_torch.core import cuda_pack
+from fluidsimulation_tpu_torch.core.interp import interp_mac3_vec
 from fluidsimulation_tpu_torch.core.seeding import noise_grids
 from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep
-from fluidsimulation_tpu_torch.ops.binning import build_csr
+from fluidsimulation_tpu_torch.ops.binning import build_csr, sort_particles
+from fluidsimulation_tpu_torch.ops.flip import flip_update_carry
 from fluidsimulation_tpu_torch.ops.levelset import seed_own_cell
 from fluidsimulation_tpu_torch.ops.project import compute_diag, compute_rhs
 
@@ -49,8 +51,13 @@ def _particles(dev, cfg=CFG):
     """Dam-break positions with velocities sampled from noise grids."""
     s = ft.init_state(cfg, "cpu")
     grids = [torch.from_numpy(g) for g in noise_grids(cfg, seed=5)]
-    vel = cuda_g2p.g2p_flip_plain(cfg, s.pos, s.vel, *grids, *grids, 0.0)[1]
+    vel = interp_mac3_vec(*grids, s.pos * N)
     return s.pos.to(dev), vel.to(dev)
+
+
+def _same(a, b):
+    """Equal values, NaN where the other has NaN (NaN bits may differ)."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
 
 
 def _counted(module, fn, *args):
@@ -60,9 +67,14 @@ def _counted(module, fn, *args):
     return out, module.KERNEL.launches - before
 
 
+def _own_cell(cfg, pos):
+    csr = build_csr(cfg, pos)
+    return seed_own_cell(cfg, csr, (pos * N)[csr.order])
+
+
 def test_seed_and_sweep_kernels_bit_exact(dev):
     pos, _ = _particles(dev)
-    cpos0 = seed_own_cell(CFG, build_csr(CFG, pos), pos * N)
+    cpos0 = _own_cell(CFG, pos)
     (phi, cpos), n = _counted(cuda_seed, cuda_seed.neighborhood_pass, CFG, cpos0)
     assert n == 1
     want = cuda_seed.neighborhood_pass_plain(CFG, cpos0)
@@ -154,7 +166,7 @@ def test_sor_kernel_bit_exact(dev):
     after 100 iterations): one launch, bit for bit the plain version."""
     pos, _ = _particles(dev)
     phi = cuda_sweep.sweep_closest(
-        CFG, *cuda_seed.neighborhood_pass(CFG, seed_own_cell(CFG, build_csr(CFG, pos), pos * N)))[0]
+        CFG, *cuda_seed.neighborhood_pass(CFG, _own_cell(CFG, pos)))[0]
     grids = [torch.from_numpy(g).to(dev) for g in noise_grids(CFG, seed=7)]
     b = compute_rhs(CFG, *grids, 0.01)
     diag = compute_diag(CFG, phi)
@@ -225,41 +237,152 @@ def test_sor_kernel_bit_exact_at_shapes(dev, shape):
                                  2 * cfg.sor_iterations - 1]
 
 
+def _g2p_args(cfg, pos, vel, seed):
+    """The FLIP gather's arguments for these particles: the CSR order, the
+    sorted positions and velocities, normal new and old grids, beta. The
+    order is that of the positions clamped into the grid (the CSR index
+    takes positions inside it), so queries past its edges keep theirs."""
+    rng = np.random.default_rng(seed)
+    dev = pos.device
+    grids = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+             for s in (cfg.u_shape(), cfg.v_shape(), cfg.w_shape()) * 2]
+    m = torch.tensor([cfg.nx, cfg.ny, cfg.nz], dtype=torch.float32, device=dev)
+    order = build_csr(cfg, torch.minimum(pos.clamp(min=0.0), 1.0 - 0.6 / m)).order
+    pcs = (pos * m)[order]
+    return (cfg, order, pcs, vel[order], *grids, 0.97)
+
+
+def _g2p_equal(args):
+    """The kernel (one launch) against the plain version, bit for bit, and
+    a second launch against the first."""
+    got, n = _counted(cuda_g2p, cuda_g2p.g2p_flip, *args)
+    assert n == 1
+    want = cuda_g2p.g2p_flip_plain(*args)
+    again = cuda_g2p.g2p_flip(*args)
+    for g, w, a in zip(got, want, again):
+        assert _same(g, w) and _same(g, a)
+    return got
+
+
 def test_g2p_kernel_matches_plain(dev):
     pos, vel = _particles(dev)
-    rng = np.random.default_rng(2)
-    grids = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
-             for s in (CFG.u_shape(), CFG.v_shape(), CFG.w_shape()) * 2]
     # Queries past every edge reach the clamps and top-edge decrements.
     pos = torch.cat([pos, torch.tensor([[-0.1, 1.1, 0.5], [1.0, 1.0, 1.0], [0.0, 0.0, 0.0]],
                                        device=dev)])
     vel = torch.cat([vel, torch.ones(3, 3, device=dev)])
-    (v, k1), n = _counted(cuda_g2p, cuda_g2p.g2p_flip, CFG, pos, vel, *grids, 0.97)
-    assert n == 1
-    wv, wk1 = cuda_g2p.g2p_flip_plain(CFG, pos, vel, *grids, 0.97)
-    torch.testing.assert_close(v, wv, rtol=0, atol=1e-5)
-    torch.testing.assert_close(k1, wk1, rtol=0, atol=1e-5)
+    _g2p_equal(_g2p_args(CFG, pos, vel, 2))
 
 
 def test_g2p_kernel_nan_position(dev):
     """The NaN rule: a NaN coordinate gives NaN vel' and k1, as the plain
-    version does; the other particles are untouched."""
+    version does; such particles sit in the slots past start[ncell]; the
+    other particles' outputs are those of the same call without the NaN."""
     pos, vel = _particles(dev)
-    rng = np.random.default_rng(4)
-    grids = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
-             for s in (CFG.u_shape(), CFG.v_shape(), CFG.w_shape()) * 2]
     bad = pos.clone()
     rows = torch.tensor([0, 5, 77], device=dev)
     bad[rows, torch.tensor([0, 1, 2], device=dev)] = float("nan")
-    v, k1 = cuda_g2p.g2p_flip(CFG, bad, vel, *grids, 0.97)
-    wv, wk1 = cuda_g2p.g2p_flip_plain(CFG, bad, vel, *grids, 0.97)
-    clean_v, clean_k1 = cuda_g2p.g2p_flip(CFG, pos, vel, *grids, 0.97)
+    args = _g2p_args(CFG, bad, vel, 4)
+    start = build_csr(CFG, bad).start
+    assert int(start[-1]) == pos.shape[0] - 3
+    v, k1 = _g2p_equal(args)
+    clean_v, clean_k1 = cuda_g2p.g2p_flip(*_g2p_args(CFG, pos, vel, 4))
     hit = torch.zeros(pos.shape[0], dtype=torch.bool, device=dev)
     hit[rows] = True
-    for got, want, clean in ((v, wv, clean_v), (k1, wk1, clean_k1)):
-        assert bool(got[hit].isnan().all()) and bool(want[hit].isnan().all())
+    for got, clean in ((v, clean_v), (k1, clean_k1)):
+        assert bool(got[hit].isnan().all())
         assert torch.equal(got[~hit], clean[~hit])
-        torch.testing.assert_close(got[~hit], want[~hit], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_g2p_kernel_at_shapes(dev, shape):
+    """Particles over and past the clamp box, 3,000 crammed into one cell,
+    two with a NaN coordinate (the tail slots), and a count that leaves the
+    last block of 256 partly empty: bit for bit the plain version."""
+    cfg = _shape_cfg(shape)
+    rng = np.random.default_rng(sum(shape) + 2)
+    m = np.array(shape, dtype=np.float32)
+    n = 2 * int(np.prod(shape)) + 101
+    pos = rng.uniform(-1.0 / m, 1.0 + 1.0 / m, size=(n, 3)).astype(np.float32)
+    pile = ((np.floor(m / 2) + rng.uniform(-0.45, 0.45, size=(3000, 3))) / m).astype(np.float32)
+    pos = np.concatenate([pos, pile])
+    pos[[7, n + 11], [1, 2]] = np.nan
+    assert pos.shape[0] % 256 != 0
+    pos = torch.from_numpy(pos).to(dev)
+    vel = torch.from_numpy(rng.standard_normal(tuple(pos.shape)).astype(np.float32)).to(dev)
+    args = _g2p_args(cfg, pos, vel, sum(shape))
+    v, k1 = _g2p_equal(args)
+    assert int((v.isnan().any(1) & k1.isnan().any(1)).sum()) == 2
+
+
+def test_flip_update_carry_forms_no_diff_grids(dev):
+    """With the step's sorted particles, the FLIP update is one kernel
+    launch and allocates its two outputs only: no du, dv, dw grids; without
+    them it builds the CSR index itself, to the same bits."""
+    pos, vel = _particles(dev)
+    rng = np.random.default_rng(6)
+    grids = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+             for s in (CFG.u_shape(), CFG.v_shape(), CFG.w_shape()) * 2]
+    walk = sort_particles(CFG, build_csr(CFG, pos), pos, vel)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    got, n = _counted(cuda_g2p, flip_update_carry, CFG, pos, vel, *grids, 0.03, walk)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 2
+    assert n == 1
+    again = flip_update_carry(CFG, pos, vel, *grids, 0.03)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _seed_candidates(shape, seed, lattice=False):
+    """Candidates in half the cells, FAR elsewhere and in the whole first
+    third along x. With ``lattice``, each candidate lies at its cell centre
+    plus -0.25, 0 or 0.25 on each axis, so many cells see exact distance
+    ties; without, anywhere in its cell."""
+    rng = np.random.default_rng(seed)
+    centres = np.stack(np.meshgrid(*(np.arange(k, dtype=np.float32) for k in shape),
+                                   indexing="ij"), axis=-1)
+    if lattice:
+        off = rng.choice(np.array([-0.25, 0.0, 0.25], dtype=np.float32), size=(*shape, 3))
+    else:
+        off = rng.uniform(-0.5, 0.5, size=(*shape, 3)).astype(np.float32)
+    cpos = centres + off
+    cpos[rng.random(shape) > 0.5] = cuda_seed.FAR
+    cpos[: max(1, shape[0] // 3)] = cuda_seed.FAR
+    return torch.from_numpy(cpos.astype(np.float32))
+
+
+def _exact_ties(cfg, cpos0):
+    """Cells whose best distance is reached by two different real
+    candidates among their 27 neighbours."""
+    pad = torch.nn.functional.pad(cpos0, (0, 0, 1, 1, 1, 1, 1, 1), value=cuda_seed.FAR)
+    nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
+    axes = [torch.arange(k, dtype=torch.float32) for k in (nx, ny, nz)]
+    c = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+    cands = torch.stack([pad[1 + dx:1 + dx + nx, 1 + dy:1 + dy + ny, 1 + dz:1 + dz + nz]
+                         for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)])
+    d = cuda_seed.dist(*cands.unbind(-1), *c.unbind(-1)) - cfg.particle_radius
+    at_best = (d == d.min(0).values) & (cands[..., 0] < 1.0e8)
+    hi = torch.where(at_best[..., None], cands, -torch.inf).amax(0)
+    lo = torch.where(at_best[..., None], cands, torch.inf).amin(0)
+    return int(((hi != lo).any(-1) & at_best.any(0)).sum())
+
+
+@pytest.mark.parametrize("lattice", [False, True], ids=["uniform", "exact_ties"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_seed_kernel_bit_exact_at_shapes(dev, shape, lattice):
+    """Ragged tiles, a third of the grid all FAR, and (lattice) exact
+    distance ties between different candidates: one launch, bit for bit
+    the plain version, and a second launch equal to the first."""
+    cfg = _shape_cfg(shape)
+    cpos0 = _seed_candidates(shape, sum(shape), lattice)
+    if lattice:
+        assert _exact_ties(cfg, cpos0) > 10
+    cpos0 = cpos0.to(dev)
+    (phi, cpos), n = _counted(cuda_seed, cuda_seed.neighborhood_pass, cfg, cpos0)
+    assert n == 1
+    want = cuda_seed.neighborhood_pass_plain(cfg, cpos0)
+    again = cuda_seed.neighborhood_pass(cfg, cpos0)
+    assert torch.equal(phi, want[0]) and torch.equal(cpos, want[1])
+    assert torch.equal(phi, again[0]) and torch.equal(cpos, again[1])
 
 
 def test_nan_step_on_card(dev):
@@ -304,6 +427,19 @@ def test_wrappers_reject_bad_arguments(dev):
         cuda_p2g.p2g_accumulate(CFG, pcs, pcs, start[:-1])
     with pytest.raises(ValueError, match="int32"):
         cuda_p2g.p2g_accumulate(CFG, pcs, pcs, start.long())
+    order = torch.arange(10, device=dev)
+    grids = [torch.zeros(s, device=dev) for s in (CFG.u_shape(), CFG.v_shape(), CFG.w_shape())]
+    with pytest.raises(ValueError, match="int64"):
+        cuda_g2p.g2p_flip(CFG, order.int(), pcs, pcs, *grids, *grids, 0.97)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_g2p.g2p_flip(CFG, order[:-1], pcs, pcs, *grids, *grids, 0.97)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_g2p.g2p_flip(CFG, order, pcs, pcs, *grids, grids[1], *grids[1:], 0.97)
+    with pytest.raises(ValueError, match="devices"):
+        cuda_g2p.g2p_flip(CFG, order, pcs, pcs.cpu(), *grids, *grids, 0.97)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_g2p.g2p_flip(CFG, order, torch.zeros((3, 10), device=dev).t(), pcs, *grids, *grids,
+                          0.97)
 
 
 def _mac_grids(dev, shape, seed=0):

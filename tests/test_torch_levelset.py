@@ -52,7 +52,8 @@ def _positions(tie: bool):
 def _own_cell(pos):
     t = torch.from_numpy(pos)
     pc = t * torch.tensor([N, N, N], dtype=torch.float32)
-    return tls.seed_own_cell(CFG, build_csr(CFG, t), pc)
+    csr = build_csr(CFG, t)
+    return tls.seed_own_cell(CFG, csr, pc[csr.order])
 
 
 def test_build_csr_is_stable_and_complete():

@@ -177,7 +177,8 @@ def test_nan_particle_takes_no_part_in_seed_or_p2g():
     keep = torch.arange(pos.shape[0]) != BAD
 
     def seed(p):
-        return seed_own_cell(cfg, build_csr(cfg, p), p * N)
+        csr = build_csr(cfg, p)
+        return seed_own_cell(cfg, csr, (p * N)[csr.order])
 
     assert torch.equal(seed(pos), seed(s.pos[keep]))
     got = cuda_p2g.p2g_accumulate_plain(cfg, pos * N, vel_bad)

@@ -23,7 +23,7 @@ from fluidsimulation_tpu.reference import solver3d
 
 import fluidsimulation_tpu_torch as ft
 from fluidsimulation_tpu_torch.ops import cuda_p2g
-from fluidsimulation_tpu_torch.ops.binning import build_csr
+from fluidsimulation_tpu_torch.ops.binning import build_csr, sort_particles
 from fluidsimulation_tpu_torch.ops.p2g import p2g_from_csr, transfer_to_grid
 
 N = 16
@@ -70,7 +70,9 @@ def _check(got, amts, want):
 def test_p2g_from_csr_matches_jax(seed, cram):
     pos, vel = _seeded(seed, cram)
     tp, tv = torch.from_numpy(pos), torch.from_numpy(vel)
-    got = p2g_from_csr(CFG, build_csr(CFG, tp), tp, tv)
+    csr = build_csr(CFG, tp)
+    walk = sort_particles(CFG, csr, tp, tv)
+    got = p2g_from_csr(CFG, csr, walk.pcs, walk.vels)
     amts = [amt for _, amt in cuda_p2g.p2g_accumulate_plain(CFG, tp * N, tv)]
 
     jp, jv = jnp.asarray(pos), jnp.asarray(vel)

@@ -25,7 +25,7 @@ from fluidsimulation_tpu.solver.step3d import step_jit
 
 import fluidsimulation_tpu_torch as ft
 from fluidsimulation_tpu_torch.ops import cuda_p2g
-from fluidsimulation_tpu_torch.ops.binning import build_csr
+from fluidsimulation_tpu_torch.ops.binning import build_csr, sort_particles
 from fluidsimulation_tpu_torch.ops.p2g import p2g_from_csr
 from fluidsimulation_tpu_torch.solver.step3d import step_guarded
 
@@ -54,7 +54,9 @@ def test_p2g_from_csr_matches_pallas_cell_table():
     ).astype(np.float32)
     tp, tv = torch.from_numpy(pos), torch.from_numpy(vel)
     before = cuda_p2g.KERNEL.launches
-    got = p2g_from_csr(CFG, build_csr(CFG, tp), tp, tv)
+    csr = build_csr(CFG, tp)
+    walk = sort_particles(CFG, csr, tp, tv)
+    got = p2g_from_csr(CFG, csr, walk.pcs, walk.vels)
     assert cuda_p2g.KERNEL.launches == before  # CPU: the plain version
 
     jp, jv = jnp.asarray(pos), jnp.asarray(vel)
