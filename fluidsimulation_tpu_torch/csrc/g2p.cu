@@ -104,7 +104,8 @@ __device__ __forceinline__ Pair trilerp_pair(const float* __restrict__ g,
   return {trilerp(diff, x, y, z), trilerp(value, x, y, z)};
 }
 
-__global__ void g2p_flip_kernel(const long long* __restrict__ order,
+template <int STORE>
+__global__ void __launch_bounds__(fst::kThreads) g2p_flip_kernel(const long long* __restrict__ order,
                                 const float* __restrict__ pcs,
                                 const float* __restrict__ vels,
                                 const float* __restrict__ u,
@@ -117,10 +118,16 @@ __global__ void g2p_flip_kernel(const long long* __restrict__ order,
                                 float* __restrict__ k1, long long n, int nx,
                                 int ny, int nz, float beta) {
   const long long s = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (s >= n) return;
-  const float pi = pcs[3 * s + 0];
-  const float pj = pcs[3 * s + 1];
-  const float pk = pcs[3 * s + 2];
+  if (STORE > 0) {
+    if (blockIdx.x * static_cast<long long>(blockDim.x) >= n) return;
+  } else if (s >= n) {
+    return;
+  }
+  const bool live = s < n;
+  const long long sl = live ? s : n - 1;
+  const float pi = pcs[3 * sl + 0];
+  const float pj = pcs[3 * sl + 1];
+  const float pk = pcs[3 * sl + 2];
   const Split I = split_normal(pi, nx), J = split_normal(pj, ny),
               K = split_normal(pk, nz);
   const Split EI = split_extended(pi, nx), EJ = split_extended(pj, ny),
@@ -130,13 +137,56 @@ __global__ void g2p_flip_kernel(const long long* __restrict__ order,
   const Pair U = trilerp_pair(u, old_u, beta, ny, nz, EI, J, K);
   const Pair V = trilerp_pair(v, old_v, beta, ny + 1, nz, I, EJ, K);
   const Pair W = trilerp_pair(w, old_w, beta, ny, nz + 1, I, J, EK);
-  const long long t = order[s];
-  k1[3 * t + 0] = U.value;
-  k1[3 * t + 1] = V.value;
-  k1[3 * t + 2] = W.value;
-  vel_out[3 * t + 0] = beta * vels[3 * s + 0] + U.diff;
-  vel_out[3 * t + 1] = beta * vels[3 * s + 1] + V.diff;
-  vel_out[3 * t + 2] = beta * vels[3 * s + 2] + W.diff;
+  const long long t = order[sl];
+  const float o[6] = {beta * vels[3 * sl + 0] + U.diff, beta * vels[3 * sl + 1] + V.diff,
+                      beta * vels[3 * sl + 2] + W.diff, U.value, V.value, W.value};
+  if (STORE == 0) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      vel_out[3 * t + c] = o[c];
+      k1[3 * t + c] = o[3 + c];
+    }
+    return;
+  }
+  // Store trial: a warp writes its 32 particles' 12 B rows as whole runs,
+  // lane l of store j taking float j*32 + l of the warp's 96.
+  __shared__ float stage[fst::kThreads / 32][2][96];
+  __shared__ long long dst[fst::kThreads / 32][32];
+  const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (STORE == 3) {
+    // Store trial: vel' and k1 as one (N, 6) array, a particle's 24 B one
+    // run; vel_out is its base.
+    float* rows = &stage[wid][0][0];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) rows[6 * lane + c] = o[c];
+    dst[wid][lane] = live ? t : -1;
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      const int q = 32 * j + lane, p = q / 6, c = q - 6 * p;
+      const long long d = dst[wid][p];
+      if (d >= 0) vel_out[6 * d + c] = rows[q];
+    }
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    stage[wid][0][3 * lane + c] = o[c];
+    stage[wid][1][3 * lane + c] = o[3 + c];
+  }
+  // STORE 2 (diagnostic): the same stores to the sorted slot, in place of
+  // the original index.
+  dst[wid][lane] = live ? (STORE == 2 ? s + (t < 0) : t) : -1;
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int q = 32 * j + lane, p = q / 3, c = q - 3 * p;
+    const long long d = dst[wid][p];
+    if (d >= 0) {
+      vel_out[3 * d + c] = stage[wid][0][q];
+      k1[3 * d + c] = stage[wid][1][q];
+    }
+  }
 }
 
 }  // namespace
@@ -147,9 +197,37 @@ extern "C" int fst_g2p_flip(const long long* order, const float* pcs, const floa
                             float* vel_out, float* k1, long long n, int nx,
                             int ny, int nz, float beta, void* stream) {
   if (n > 0) {
-    g2p_flip_kernel<<<fst::blocks_for(n), fst::kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+    g2p_flip_kernel<3><<<fst::blocks_for(n), fst::kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
         order, pcs, vels, u, v, w, old_u, old_v, old_w, vel_out, k1, n, nx, ny, nz, beta);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Store trial: variant 0 stores each float where it goes, variant 1 writes a
+// warp's rows as whole runs.
+extern "C" int fst_g2p_flip_variant(const long long* order, const float* pcs,
+                                    const float* vels, const float* u, const float* v,
+                                    const float* w, const float* old_u, const float* old_v,
+                                    const float* old_w, float* vel_out, float* k1, long long n,
+                                    int nx, int ny, int nz, float beta, int variant,
+                                    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  if (variant == 0) {
+    g2p_flip_kernel<0><<<fst::blocks_for(n), fst::kThreads, 0, s>>>(
+        order, pcs, vels, u, v, w, old_u, old_v, old_w, vel_out, k1, n, nx, ny, nz, beta);
+  } else if (variant == 1) {
+    g2p_flip_kernel<1><<<fst::blocks_for(n), fst::kThreads, 0, s>>>(
+        order, pcs, vels, u, v, w, old_u, old_v, old_w, vel_out, k1, n, nx, ny, nz, beta);
+  } else if (variant == 2) {
+    g2p_flip_kernel<2><<<fst::blocks_for(n), fst::kThreads, 0, s>>>(
+        order, pcs, vels, u, v, w, old_u, old_v, old_w, vel_out, k1, n, nx, ny, nz, beta);
+  } else if (variant == 3) {
+    g2p_flip_kernel<3><<<fst::blocks_for(n), fst::kThreads, 0, s>>>(
+        order, pcs, vels, u, v, w, old_u, old_v, old_w, vel_out, k1, n, nx, ny, nz, beta);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

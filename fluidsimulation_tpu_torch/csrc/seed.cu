@@ -42,91 +42,204 @@ namespace {
 
 constexpr int kTZ = 32;  // cells a tile along z: a warp's lanes
 
-// The candidates of one x-plane around a thread's cell: (dy, dz) in
-// row-major order, dy and dz in -1, 0, 1.
-struct Plane {
-  float x[9], y[9], z[9];
-};
-
+// The best candidate so far: its dist and d2, and its coordinates.
 struct Best {
-  float dist = CUDART_INF_F;
-  float d2 = CUDART_INF_F;
-  float x = fst::kFar, y = fst::kFar, z = fst::kFar;
+  float dist, d2, x, y, z;
 };
 
-__device__ __forceinline__ void load_plane(Plane& p, const float* sx, const float* sy,
-                                           const float* sz, int base) {
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const int h = base + (k / 3) * (kTZ + 2) + k % 3;
-    p.x[k] = sx[h];
-    p.y[k] = sy[h];
-    p.z[k] = sz[h];
+__device__ __forceinline__ void copy_async(float* smem, const float* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The staged halo of a tile: candidate h of the (hx, hy, hz) halo, either
+// as the field lies, (x, y, z) at 3h (AoS), or in three planes of kHalo
+// floats (SoA, trial).
+template <bool SOA, int kHalo>
+struct Halo {
+  const float* s;
+  __device__ __forceinline__ float3 at(int h) const {
+    if (SOA) return make_float3(s[h], s[kHalo + h], s[2 * kHalo + h]);
+    return make_float3(s[3 * h], s[3 * h + 1], s[3 * h + 2]);
+  }
+};
+
+// One candidate against the best so far: the plain version's step, the
+// sqrt only where d2 is below the best's d2.
+__device__ __forceinline__ void visit(float3 a, float fx, float fy, float fz, float r,
+                                      Best& b) {
+  const float ex = a.x - fx;
+  const float ey = a.y - fy;
+  const float ez = a.z - fz;
+  const float d2 = ex * ex + ey * ey + ez * ez;
+  if (d2 < b.d2) {
+    const float dist = sqrtf(d2) - r;
+    if (dist < b.dist) {
+      b = {dist, d2, a.x, a.y, a.z};
+    }
   }
 }
 
-__device__ __forceinline__ void visit(const Plane& p, float fx, float fy, float fz, float r,
-                                      Best& b) {
+// The plain version's loop over a cell's 27 candidates, hof(k) the halo
+// index of candidate k = (dx, dy, dz) in row-major order.
+template <typename T, typename H>
+__device__ __forceinline__ Best filter_loop(T halo, H hof, float fx, float fy, float fz,
+                                            float r) {
+  Best b = {CUDART_INF_F, CUDART_INF_F, fst::kFar, fst::kFar, fst::kFar};
+#pragma unroll 1
+  for (int k = 0; k < 27; ++k) visit(halo.at(hof(k)), fx, fy, fz, r, b);
+  return b;
+}
+
+template <typename T, typename H>
+__device__ __noinline__ Best sequential(T halo, H hof, float fx, float fy, float fz, float r) {
+  return filter_loop(halo, hof, fx, fy, fz, r);
+}
+
+// The cell's winner from its 27 squared distances d2[k], k = (dx, dy, dz)
+// in row-major order, hof(k) the candidate's index in the halo, with one
+// sqrt: the plain version keeps the first candidate of least
+// dist = fl(fl(sqrt(d2)) - r), and dist is monotone in d2, so the least
+// dist is that of m = min d2, and the winner is the first candidate whose
+// dist rounds to it. With m >= 1e-30 finite and sqrt(m) >= |r| / 256, no
+// candidate with d2 > m (1 + 2^-12) can round to it (PERF.md, section 6), so
+// the winner is the first candidate with d2 <= that threshold if its d2 is
+// m. Returns false where that does not settle it (a near-tie, a candidate
+// within |r| / 256 of the cell centre, no finite d2); the caller then runs
+// the plain version's loop.
+template <typename H>
+__device__ __forceinline__ bool pick(const float (&d2)[27], H hof, float r, float& dist,
+                                     int& h) {
+  float m = CUDART_INF_F;
 #pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const float ex = p.x[k] - fx;
-    const float ey = p.y[k] - fy;
-    const float ez = p.z[k] - fz;
-    const float d2 = ex * ex + ey * ey + ez * ez;
-    if (d2 < b.d2) {
-      const float dist = sqrtf(d2) - r;
-      if (dist < b.dist) {
-        b.dist = dist;
-        b.d2 = d2;
-        b.x = p.x[k];
-        b.y = p.y[k];
-        b.z = p.z[k];
+  for (int k = 0; k < 27; ++k) m = fminf(m, d2[k]);
+  const float sm = sqrtf(m);
+  if (!(m >= 1.0e-30f && m < CUDART_INF_F && sm * 256.0f >= fabsf(r))) return false;
+  const float thresh = m + m * 2.44140625e-04f;  // m (1 + 2^-12)
+  float first = CUDART_INF_F;
+  h = 0;
+#pragma unroll
+  for (int k = 26; k >= 0; --k) {
+    if (d2[k] <= thresh) {
+      first = d2[k];
+      h = hof(k);
+    }
+  }
+  dist = sm - r;
+  return first == m;
+}
+
+// The halo of the tile at (x0, y0, z0) into shared memory; FAR where it
+// leaves the grid. AoS: each halo row, 3 * (kTZ + 2) contiguous floats of
+// the field, is copied by one warp with 4 B cp.async as it lies. SoA
+// (trial): every float of the halo de-interleaved into its plane. The
+// caller waits for the copies.
+template <int CX, int TY, bool SOA>
+__device__ __forceinline__ void stage(const float* __restrict__ cpos0, float* sc, int x0,
+                                      int y0, int z0, int nx, int ny, int nz) {
+  constexpr int kHY = TY + 2, kHZ = kTZ + 2, kRow = 3 * kHZ;
+  constexpr int kHalo = (CX + 2) * kHY * kHZ;
+  if (SOA) {
+    constexpr int kFloats = 3 * kHalo, kThreadsHere = TY * kTZ;
+#pragma unroll
+    for (int it = 0; it < (kFloats + kThreadsHere - 1) / kThreadsHere; ++it) {
+      const int q = it * kThreadsHere + threadIdx.x;
+      if (q < kFloats) {
+        const int row = q / kRow, f = q - row * kRow;
+        const int hz = f / 3, comp = f - 3 * hz;
+        const int hx = row / kHY, hy = row - hx * kHY;
+        const int X = x0 - 1 + hx, Y = y0 - 1 + hy, Z = z0 - 1 + hz;
+        float* dst = sc + comp * kHalo + row * kHZ + hz;
+        if (X >= 0 && X < nx && Y >= 0 && Y < ny && Z >= 0 && Z < nz) {
+          copy_async(dst, cpos0 + 3 * ((static_cast<long long>(X) * ny + Y) * nz + Z) + comp);
+        } else {
+          *dst = fst::kFar;
+        }
+      }
+    }
+    return;
+  }
+  constexpr int kPer = (kRow + 31) / 32;  // floats of a row a lane copies
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int zs[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) zs[j] = z0 - 1 + (lane + 32 * j) / 3;
+  for (int row = warp; row < (CX + 2) * kHY; row += TY) {
+    const int hx = row / kHY, hy = row - hx * kHY;
+    const int X = x0 - 1 + hx, Y = y0 - 1 + hy;
+    const bool in = X >= 0 && X < nx && Y >= 0 && Y < ny;
+    const float* src = cpos0 + 3 * ((static_cast<long long>(X) * ny + Y) * nz + z0 - 1);
+    float* dst = sc + row * kRow;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int f = lane + 32 * j;
+      if (f < kRow) {
+        if (in && zs[j] >= 0 && zs[j] < nz) {
+          copy_async(dst + f, src + f);
+        } else {
+          dst[f] = fst::kFar;
+        }
       }
     }
   }
 }
 
-template <int CX, int TY>
+// MODE 0 (trial): the plain version's loop, the sqrt where d2 beats the
+// best's. MODE 2 (trial): the staging and the stores alone, each cell's
+// own candidate (not the pass). MODE 3: the 27 d2, one sqrt (pick).
+template <int CX, int TY, int MODE, bool SOA>
 __global__ void __launch_bounds__(TY * kTZ)
     neighborhood_pass_kernel(const float* __restrict__ cpos0, float* __restrict__ phi,
                              float* __restrict__ cpos, int nx, int ny, int nz, float r) {
-  constexpr int kHX = CX + 2, kHY = TY + 2, kHZ = kTZ + 2;
-  constexpr int kHalo = kHX * kHY * kHZ;
-  constexpr int kRow = 3 * kHZ;  // floats of one halo row of the field
-  __shared__ float sx[kHalo], sy[kHalo], sz[kHalo];
-
+  constexpr int kHY = TY + 2, kHZ = kTZ + 2, kHalo = (CX + 2) * kHY * kHZ;
+  __shared__ float sc[3 * kHalo];
   const int x0 = blockIdx.x * CX, y0 = blockIdx.y * TY, z0 = blockIdx.z * kTZ;
-  for (int q = threadIdx.x; q < kHX * kHY * kRow; q += TY * kTZ) {
-    const int row = q / kRow, f = q - row * kRow;
-    const int hz = f / 3, comp = f - 3 * hz;
-    const int hx = row / kHY, hy = row - hx * kHY;
-    const int X = x0 - 1 + hx, Y = y0 - 1 + hy, Z = z0 - 1 + hz;
-    float val = fst::kFar;
-    if (X >= 0 && X < nx && Y >= 0 && Y < ny && Z >= 0 && Z < nz) {
-      val = cpos0[3 * ((static_cast<long long>(X) * ny + Y) * nz + Z) + comp];
-    }
-    float* plane = comp == 0 ? sx : (comp == 1 ? sy : sz);
-    plane[row * kHZ + hz] = val;
-  }
+  stage<CX, TY, SOA>(cpos0, sc, x0, y0, z0, nx, ny, nz);
+  wait_copies();
   __syncthreads();
 
+  const Halo<SOA, kHalo> halo{sc};
   const int ty = threadIdx.x / kTZ, tz = threadIdx.x % kTZ;
   const int y = y0 + ty, z = z0 + tz;
   if (y >= ny || z >= nz) return;
   const float fy = static_cast<float>(y), fz = static_cast<float>(z);
-  Plane p[3];
-  load_plane(p[0], sx, sy, sz, (0 * kHY + ty) * kHZ + tz);
-  load_plane(p[1], sx, sy, sz, (1 * kHY + ty) * kHZ + tz);
+  auto base = [=](int hx) { return (hx * kHY + ty) * kHZ + tz; };
 #pragma unroll
   for (int i = 0; i < CX; ++i) {
     const int x = x0 + i;
     if (x >= nx) break;
-    load_plane(p[(i + 2) % 3], sx, sy, sz, ((i + 2) * kHY + ty) * kHZ + tz);
     const float fx = static_cast<float>(x);
+    auto hof = [=](int k) { return base(i + k / 9) + ((k / 3) % 3) * kHZ + k % 3; };
     Best b;
-    visit(p[i % 3], fx, fy, fz, r, b);
-    visit(p[(i + 1) % 3], fx, fy, fz, r, b);
-    visit(p[(i + 2) % 3], fx, fy, fz, r, b);
+    if (MODE == 0) {
+      b = filter_loop(halo, hof, fx, fy, fz, r);
+    } else if (MODE == 2) {
+      const float3 c = halo.at(hof(13));
+      b = {c.x, 0.0f, c.x, c.y, c.z};
+    } else {
+      float d2[27];
+#pragma unroll
+      for (int k = 0; k < 27; ++k) {
+        const float3 c = halo.at(hof(k));
+        const float ex = c.x - fx;
+        const float ey = c.y - fy;
+        const float ez = c.z - fz;
+        d2[k] = ex * ex + ey * ey + ez * ez;
+      }
+      int h;
+      if (pick(d2, hof, r, b.dist, h)) {
+        const float3 c = halo.at(h);
+        b.x = c.x;
+        b.y = c.y;
+        b.z = c.z;
+      } else {
+        b = sequential(halo, hof, fx, fy, fz, r);
+      }
+    }
     const long long t = (static_cast<long long>(x) * ny + y) * nz + z;
     phi[t] = b.dist;
     cpos[3 * t + 0] = b.x;
@@ -135,12 +248,12 @@ __global__ void __launch_bounds__(TY * kTZ)
   }
 }
 
-template <int CX, int TY>
+template <int CX, int TY, int MODE, bool SOA>
 int launch(const float* cpos0, float* phi, float* cpos, int nx, int ny, int nz, float r,
            cudaStream_t stream) {
   const dim3 grid((nx + CX - 1) / CX, (ny + TY - 1) / TY, (nz + kTZ - 1) / kTZ);
-  neighborhood_pass_kernel<CX, TY><<<grid, TY * kTZ, 0, stream>>>(cpos0, phi, cpos, nx, ny,
-                                                                 nz, r);
+  neighborhood_pass_kernel<CX, TY, MODE, SOA><<<grid, TY * kTZ, 0, stream>>>(
+      cpos0, phi, cpos, nx, ny, nz, r);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -150,22 +263,32 @@ extern "C" int fst_neighborhood_pass(const float* cpos0, float* phi, float* cpos
                                      int nx, int ny, int nz, float r,
                                      void* stream) {
   if (static_cast<long long>(nx) * ny * nz == 0) return static_cast<int>(cudaGetLastError());
-  return launch<4, 8>(cpos0, phi, cpos, nx, ny, nz, r, static_cast<cudaStream_t>(stream));
+  return launch<4, 8, 3, false>(cpos0, phi, cpos, nx, ny, nz, r,
+                                static_cast<cudaStream_t>(stream));
 }
 
-// Tile trial: the same kernel with the tile (cx cells a thread along x, ty
-// warps along y) chosen by the caller. Returns cudaErrorInvalidValue for a
-// tile that is not built.
+// Tile trial: the kernel at tile (cx cells a thread along x, ty warps along
+// y) and mode (0, 2, 3; plus 10 with the SoA staging) chosen by the caller.
+// Returns cudaErrorInvalidValue for a tile that is not built.
 extern "C" int fst_neighborhood_pass_tile(const float* cpos0, float* phi, float* cpos,
                                           int nx, int ny, int nz, float r, int cx, int ty,
-                                          void* stream) {
+                                          int mode, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (static_cast<long long>(nx) * ny * nz == 0) return static_cast<int>(cudaGetLastError());
-  if (cx == 1 && ty == 8) return launch<1, 8>(cpos0, phi, cpos, nx, ny, nz, r, s);
-  if (cx == 2 && ty == 8) return launch<2, 8>(cpos0, phi, cpos, nx, ny, nz, r, s);
-  if (cx == 4 && ty == 8) return launch<4, 8>(cpos0, phi, cpos, nx, ny, nz, r, s);
-  if (cx == 8 && ty == 8) return launch<8, 8>(cpos0, phi, cpos, nx, ny, nz, r, s);
-  if (cx == 4 && ty == 4) return launch<4, 4>(cpos0, phi, cpos, nx, ny, nz, r, s);
-  if (cx == 8 && ty == 4) return launch<8, 4>(cpos0, phi, cpos, nx, ny, nz, r, s);
+#define FST_TILE(CX, TY, MODE, SOA)                                         \
+  if (cx == CX && ty == TY && mode == MODE + 10 * SOA)                      \
+    return launch<CX, TY, MODE, SOA>(cpos0, phi, cpos, nx, ny, nz, r, s);
+  FST_TILE(1, 8, 3, false)
+  FST_TILE(2, 8, 3, false)
+  FST_TILE(4, 8, 3, false)
+  FST_TILE(8, 8, 3, false)
+  FST_TILE(4, 4, 3, false)
+  FST_TILE(8, 4, 3, false)
+  FST_TILE(4, 8, 0, false)
+  FST_TILE(4, 8, 2, false)
+  FST_TILE(4, 8, 3, true)
+  FST_TILE(4, 8, 0, true)
+  FST_TILE(4, 8, 2, true)
+#undef FST_TILE
   return static_cast<int>(cudaErrorInvalidValue);
 }

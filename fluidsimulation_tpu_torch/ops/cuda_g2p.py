@@ -26,6 +26,33 @@ KERNEL = _build.Kernel(
 )
 
 
+# Store trial only: 0 stores each float where it goes, 1 writes a warp's
+# rows as whole runs, 2 (diagnostic, a wrong order) the same to the sorted
+# slots, 3 as 1 into one (N, 6) array whose halves are vel' and k1.
+VARIANT_KERNEL = _build.Kernel(
+    "fst_g2p_flip_variant",
+    [_build.P] * 11 + [_build.L, _build.I, _build.I, _build.I, _build.F, _build.I],
+)
+VARIANTS = (0, 1, 2, 3)
+
+
+def g2p_flip_variant(cfg: SimConfig, order, pcs, vels, u, v, w, old_u, old_v, old_w, beta,
+                     variant):
+    """The kernel's store variant ``variant`` (store trial)."""
+    n = pcs.shape[0]
+    if variant == 3:
+        rows = torch.empty((n, 6), dtype=torch.float32, device=pcs.device)
+        vel_out, k1 = rows[:, :3], rows[:, 3:]
+    else:
+        vel_out = torch.empty((n, 3), dtype=torch.float32, device=pcs.device)
+        k1 = torch.empty((n, 3), dtype=torch.float32, device=pcs.device)
+    VARIANT_KERNEL.launch(pcs.device, order.data_ptr(), pcs.data_ptr(), vels.data_ptr(),
+                          *(g.data_ptr() for g in (u, v, w, old_u, old_v, old_w)),
+                          vel_out.data_ptr(), k1.data_ptr(), n, cfg.nx, cfg.ny, cfg.nz,
+                          float(beta), variant)
+    return vel_out, k1
+
+
 def g2p_flip_plain(cfg: SimConfig, order, pcs, vels, u, v, w, old_u, old_v, old_w, beta):
     diff = interp_mac3_vec(u - beta * old_u, v - beta * old_v, w - beta * old_w, pcs)
     k1 = interp_mac3_vec(u, v, w, pcs)
@@ -41,7 +68,7 @@ def g2p_flip(cfg: SimConfig, order, pcs, vels, u, v, w, old_u, old_v, old_w, bet
     positions in cell units and vels (N, 3), both in that order (see
     ops/binning.py::sort_particles); u, v, w and old_u, old_v, old_w MAC
     grids; beta = 1 - alpha. Returns (vel', k1), each (N, 3), in the
-    original order."""
+    original order; from the kernel, the two halves of one (N, 6) array."""
     if pcs.device.type == "cpu":
         return g2p_flip_plain(cfg, order, pcs, vels, u, v, w, old_u, old_v, old_w, beta)
     n = pcs.shape[0]
@@ -55,8 +82,10 @@ def g2p_flip(cfg: SimConfig, order, pcs, vels, u, v, w, old_u, old_v, old_w, bet
             shapes * 2,
         )
     ]
-    vel_out = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    k1 = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    # One (N, 6) array: a particle's vel' and k1 are one 24 B run, which
+    # the kernel writes whole to the particle's original row.
+    rows = torch.empty((n, 6), dtype=torch.float32, device=dev)
+    vel_out, k1 = rows[:, :3], rows[:, 3:]
     KERNEL.launch(
         dev,
         _build.check(order, "order", (n,), torch.int64),

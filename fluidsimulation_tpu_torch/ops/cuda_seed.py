@@ -28,9 +28,13 @@ KERNEL = _build.Kernel(
 # along y).
 TILE_KERNEL = _build.Kernel(
     "fst_neighborhood_pass_tile",
-    [_build.P, _build.P, _build.P, _build.I, _build.I, _build.I, _build.F, _build.I, _build.I],
+    [_build.P, _build.P, _build.P, _build.I, _build.I, _build.I, _build.F] + [_build.I] * 3,
 )
-TILES = ((1, 8), (2, 8), (4, 8), (8, 8), (4, 4), (8, 4))
+# (cx, ty, mode): mode 3 the pass (one sqrt a cell), 0 the plain loop with
+# the sqrt where d2 beats the best's, 2 the staging and the stores alone
+# (not the pass); 10 + mode with the halo staged as three SoA planes.
+TILES = ((1, 8, 3), (2, 8, 3), (4, 8, 3), (8, 8, 3), (4, 4, 3), (8, 4, 3), (4, 8, 0), (4, 8, 2),
+         (4, 8, 13), (4, 8, 10), (4, 8, 12))
 
 
 def dist(ax, ay, az, bx, by, bz):
@@ -81,7 +85,7 @@ def neighborhood_pass(cfg: SimConfig, cpos0):
 
 
 def neighborhood_pass_tile(cfg: SimConfig, cpos0, tile):
-    """The kernel at ``tile`` = (cx, ty), one of TILES (tile trial)."""
+    """The kernel at ``tile`` = (cx, ty, mode), one of TILES (tile trial)."""
     nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
     src = _build.check(cpos0, "cpos0", (nx, ny, nz, 3))
     phi = torch.empty((nx, ny, nz), dtype=torch.float32, device=cpos0.device)

@@ -67,6 +67,23 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_ms(fn, name: str, reps: int = REPS) -> float:
+    """Mean ms a run of fn() spends in device kernels whose name holds
+    ``name``, under torch.profiler (the kernel alone, without the host's
+    launch gaps that cuda_ms sees when the kernel is shorter)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and name in e.key) / 1e3 / reps
+
+
 def sweep_runner(cuda_sweep):
     """fn(cfg, phi, cpos, codes) running the sweeps of ``codes`` on the card."""
     if hasattr(cuda_sweep, "sweeps"):
@@ -153,12 +170,12 @@ def walk_stats(cfg, start) -> dict:
             "warp_step_efficiency": useful / (32 * steps)}
 
 
-def g2p_permuted_ms(cuda_g2p, args) -> float | None:
+def g2p_permuted_ms(cuda_g2p, args) -> tuple[float, float] | None:
     """Permutation experiment, for a checkout whose FLIP gather takes the
     particles in their original order, (cfg, pos, vel, du, dv, dw, u, v, w,
     beta): its time with pos and vel permuted into CSR order beforehand (the
-    permutation outside the timed call). None for a gather that takes the
-    CSR order itself."""
+    permutation outside the timed call), by cuda_ms and by kernel_ms. None
+    for a gather that takes the CSR order itself."""
     from fluidsimulation_tpu_torch.ops.binning import build_csr
 
     cfg, pos = args[0], args[1]
@@ -166,7 +183,22 @@ def g2p_permuted_ms(cuda_g2p, args) -> float | None:
         return None
     order = build_csr(cfg, pos).order
     permuted = (cfg, pos[order].contiguous(), args[2][order].contiguous(), *args[3:])
-    return cuda_ms(lambda: cuda_g2p.g2p_flip(*permuted))
+    return (cuda_ms(lambda: cuda_g2p.g2p_flip(*permuted)),
+            kernel_ms(lambda: cuda_g2p.g2p_flip(*permuted), "g2p_flip_kernel"))
+
+
+def g2p_variant_ms(cuda_g2p, args) -> dict:
+    """Store trial: the gather at each store variant the checkout builds,
+    bit for bit its one launch."""
+    out = {}
+    want = cuda_g2p.g2p_flip(*args)
+    for variant in getattr(cuda_g2p, "VARIANTS", ()):
+        got = cuda_g2p.g2p_flip_variant(*args, variant)
+        out[f"g2p_variant_{variant}_equal"] = all(same(a, b) for a, b in zip(got, want))
+        out[f"g2p_variant_{variant}_ms"] = cuda_ms(lambda v=variant: cuda_g2p.g2p_flip_variant(*args, v))
+        out[f"g2p_variant_{variant}_kernel_ms"] = kernel_ms(
+            lambda v=variant: cuda_g2p.g2p_flip_variant(*args, v), "g2p_flip_kernel")
+    return out
 
 
 def seed_tile_ms(cuda_seed, args) -> dict:
@@ -179,6 +211,8 @@ def seed_tile_ms(cuda_seed, args) -> dict:
         label = "x".join(map(str, tile))
         out[f"seed_tile_{label}_equal"] = all(torch.equal(a, b) for a, b in zip(got, want))
         out[f"seed_tile_{label}_ms"] = cuda_ms(lambda t=tile: cuda_seed.neighborhood_pass_tile(*args, t))
+        out[f"seed_tile_{label}_kernel_ms"] = kernel_ms(
+            lambda t=tile: cuda_seed.neighborhood_pass_tile(*args, t), "neighborhood_pass_kernel")
     return out
 
 
@@ -229,9 +263,14 @@ def main(argv=None) -> int:
         row["sor_ms"] = cuda_ms(lambda: cuda_sor.sor_pressure(*captured["sor"]))
         row["fluid_cells"] = int((captured["sor"][1] < 0).sum())
         row["g2p_ms"] = cuda_ms(lambda: cuda_g2p.g2p_flip(*captured["g2p"]))
+        row["g2p_kernel_ms"] = kernel_ms(lambda: cuda_g2p.g2p_flip(*captured["g2p"]),
+                                         "g2p_flip_kernel")
         row["g2p_permuted_ms"] = g2p_permuted_ms(cuda_g2p, captured["g2p"])
+        row.update(g2p_variant_ms(cuda_g2p, captured["g2p"]))
         row["flip_ms"] = cuda_ms(lambda: flip.flip_update_carry(*captured["flip"]))
         row["seed_ms"] = cuda_ms(lambda: cuda_seed.neighborhood_pass(*captured["seed"]))
+        row["seed_kernel_ms"] = kernel_ms(lambda: cuda_seed.neighborhood_pass(*captured["seed"]),
+                                          "neighborhood_pass_kernel")
         row.update(seed_tile_ms(cuda_seed, captured["seed"]))
         row.update(walk_stats(cfg, captured["p2g"][3]))
         row["p2g_ms"] = cuda_ms(lambda: cuda_p2g.p2g_accumulate(*captured["p2g"]))

@@ -316,8 +316,9 @@ def test_g2p_kernel_at_shapes(dev, shape):
 
 def test_flip_update_carry_forms_no_diff_grids(dev):
     """With the step's sorted particles, the FLIP update is one kernel
-    launch and allocates its two outputs only: no du, dv, dw grids; without
-    them it builds the CSR index itself, to the same bits."""
+    launch and allocates one (N, 6) array, vel' and k1, and nothing else: no
+    du, dv, dw grids; without them it builds the CSR index itself, to the
+    same bits."""
     pos, vel = _particles(dev)
     rng = np.random.default_rng(6)
     grids = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
@@ -326,7 +327,7 @@ def test_flip_update_carry_forms_no_diff_grids(dev):
     torch.cuda.synchronize()
     before = torch.cuda.memory_stats()["allocation.all.allocated"]
     got, n = _counted(cuda_g2p, flip_update_carry, CFG, pos, vel, *grids, 0.03, walk)
-    assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 2
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 1
     assert n == 1
     again = flip_update_carry(CFG, pos, vel, *grids, 0.03)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -336,7 +337,9 @@ def _seed_candidates(shape, seed, lattice=False):
     """Candidates in half the cells, FAR elsewhere and in the whole first
     third along x. With ``lattice``, each candidate lies at its cell centre
     plus -0.25, 0 or 0.25 on each axis, so many cells see exact distance
-    ties; without, anywhere in its cell."""
+    ties, some see a candidate at their centre, and a fifth of the
+    candidates are moved by one float step (near-ties); without, anywhere
+    in its cell."""
     rng = np.random.default_rng(seed)
     centres = np.stack(np.meshgrid(*(np.arange(k, dtype=np.float32) for k in shape),
                                    indexing="ij"), axis=-1)
@@ -344,7 +347,13 @@ def _seed_candidates(shape, seed, lattice=False):
         off = rng.choice(np.array([-0.25, 0.0, 0.25], dtype=np.float32), size=(*shape, 3))
     else:
         off = rng.uniform(-0.5, 0.5, size=(*shape, 3)).astype(np.float32)
-    cpos = centres + off
+    cpos = (centres + off).astype(np.float32)
+    if lattice:
+        # One coordinate of a fifth of them a float step up: distances that
+        # differ from a tie in the last bits (near-ties).
+        step = rng.random(shape) < 0.2
+        cpos[..., 0] = np.where(step, np.nextafter(cpos[..., 0], np.float32(np.inf)),
+                                cpos[..., 0])
     cpos[rng.random(shape) > 0.5] = cuda_seed.FAR
     cpos[: max(1, shape[0] // 3)] = cuda_seed.FAR
     return torch.from_numpy(cpos.astype(np.float32))
