@@ -17,26 +17,35 @@
 // Bound on the H100: device-memory bytes of the particle streams. A
 // particle reads 24 B (position, velocity) and writes 24 B (vel', k1), and
 // the six grids are read once: 48 MB of particle traffic and 50 MB of grids
-// at 1M particles and 128^3, about 29 us at 3.35 TB/s. The sorted order and
-// the CSR offsets it is walked by count against the kernel, not the bound.
+// at 1M particles and 128^3, about 29 us at 3.35 TB/s. The sorted order the
+// particles are walked in counts against the kernel, not the bound.
 //
-// Design: one thread a sorted slot. Thread s takes slot s of the CSR order,
-// so the 32 lanes of a warp lie in one or a few neighbouring cells, their
-// corner loads fall on a few lines, and the L1 serves their neighbours;
-// positions and velocities, already in CSR order, are read coalesced. vel'
-// and k1 are written to the particle's original index, order[s], so the
-// state keeps the JAX package's particle order. There is no per-cell loop,
-// so a pile of thousands in one cell is only more slots. The diff grids are
-// formed at each corner, dg = g - beta * g_old: one product and one
-// difference, the plain version's rounding under -fmad=false; the kernel
-// reads g and g_old where the step once built dg in six elementwise
-// launches, and makes as many loads. Every slot is covered, the non-finite
-// positions that the CSR index keeps past start[ncell] included: such a
-// particle reads in-range cells and returns NaN for vel' and k1, as the
-// plain version does.
+// Design: one thread a sorted slot.
+//   * Thread s takes slot s of the CSR order, so the 32 lanes of a warp lie
+//     in one or a few neighbouring cells, their corner loads fall on a few
+//     lines, and the L1 serves their neighbours; positions and velocities,
+//     already in CSR order, are read coalesced. There is no per-cell loop,
+//     so a pile of thousands in one cell is only more slots.
+//   * The diff grids are formed at each corner, dg = g - beta * g_old: one
+//     product and one difference, the plain version's rounding under
+//     -fmad=false. The kernel reads g and g_old where the step once built
+//     dg in six elementwise launches, and makes as many loads.
+//   * vel' and k1 go to the particle's original row, order[s], so the state
+//     keeps the JAX package's particle order. That scatter is what costs:
+//     the dam break's original order runs x fastest and the CSR order z
+//     fastest, so a warp's 32 rows land far apart. The two outputs are the
+//     halves of one (N, 6) array, so a particle's 24 B are one run, and a
+//     warp writes its rows through shared memory as whole runs (PERF.md,
+//     section 6: 0.13 ms at 128^3 with six scalar stores a particle, 0.056
+//     ms so).
+//   * Every slot is covered, the non-finite positions that the CSR index
+//     keeps past start[ncell] included: such a particle reads in-range
+//     cells and returns NaN for vel' and k1, as the plain version does.
 #include "common.cuh"
 
 namespace {
+
+constexpr int kWarps = fst::kThreads / 32;
 
 struct Split {
   int i;
@@ -104,25 +113,19 @@ __device__ __forceinline__ Pair trilerp_pair(const float* __restrict__ g,
   return {trilerp(diff, x, y, z), trilerp(value, x, y, z)};
 }
 
-template <int STORE>
-__global__ void __launch_bounds__(fst::kThreads) g2p_flip_kernel(const long long* __restrict__ order,
-                                const float* __restrict__ pcs,
-                                const float* __restrict__ vels,
-                                const float* __restrict__ u,
-                                const float* __restrict__ v,
-                                const float* __restrict__ w,
-                                const float* __restrict__ old_u,
-                                const float* __restrict__ old_v,
-                                const float* __restrict__ old_w,
-                                float* __restrict__ vel_out,
-                                float* __restrict__ k1, long long n, int nx,
-                                int ny, int nz, float beta) {
+__global__ void __launch_bounds__(fst::kThreads)
+    g2p_flip_kernel(const long long* __restrict__ order, const float* __restrict__ pcs,
+                    const float* __restrict__ vels, const float* __restrict__ u,
+                    const float* __restrict__ v, const float* __restrict__ w,
+                    const float* __restrict__ old_u, const float* __restrict__ old_v,
+                    const float* __restrict__ old_w, float* __restrict__ rows, long long n,
+                    int nx, int ny, int nz, float beta) {
+  __shared__ float stage[kWarps][6 * 32];
+  __shared__ long long dst[kWarps][32];
   const long long s = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (STORE > 0) {
-    if (blockIdx.x * static_cast<long long>(blockDim.x) >= n) return;
-  } else if (s >= n) {
-    return;
-  }
+  const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // A lane past the last slot computes slot n - 1 and stores nothing, so
+  // that its warp's stores stay whole.
   const bool live = s < n;
   const long long sl = live ? s : n - 1;
   const float pi = pcs[3 * sl + 0];
@@ -137,55 +140,19 @@ __global__ void __launch_bounds__(fst::kThreads) g2p_flip_kernel(const long long
   const Pair U = trilerp_pair(u, old_u, beta, ny, nz, EI, J, K);
   const Pair V = trilerp_pair(v, old_v, beta, ny + 1, nz, I, EJ, K);
   const Pair W = trilerp_pair(w, old_w, beta, ny, nz + 1, I, J, EK);
-  const long long t = order[sl];
-  const float o[6] = {beta * vels[3 * sl + 0] + U.diff, beta * vels[3 * sl + 1] + V.diff,
-                      beta * vels[3 * sl + 2] + W.diff, U.value, V.value, W.value};
-  if (STORE == 0) {
+  const float out[6] = {beta * vels[3 * sl + 0] + U.diff, beta * vels[3 * sl + 1] + V.diff,
+                        beta * vels[3 * sl + 2] + W.diff, U.value, V.value, W.value};
+  // The warp's 32 rows of 6 floats through shared memory: lane l of store j
+  // writes float 32 j + l of them, so each store covers whole 24 B rows.
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      vel_out[3 * t + c] = o[c];
-      k1[3 * t + c] = o[3 + c];
-    }
-    return;
-  }
-  // Store trial: a warp writes its 32 particles' 12 B rows as whole runs,
-  // lane l of store j taking float j*32 + l of the warp's 96.
-  __shared__ float stage[fst::kThreads / 32][2][96];
-  __shared__ long long dst[fst::kThreads / 32][32];
-  const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (STORE == 3) {
-    // Store trial: vel' and k1 as one (N, 6) array, a particle's 24 B one
-    // run; vel_out is its base.
-    float* rows = &stage[wid][0][0];
-#pragma unroll
-    for (int c = 0; c < 6; ++c) rows[6 * lane + c] = o[c];
-    dst[wid][lane] = live ? t : -1;
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      const int q = 32 * j + lane, p = q / 6, c = q - 6 * p;
-      const long long d = dst[wid][p];
-      if (d >= 0) vel_out[6 * d + c] = rows[q];
-    }
-    return;
-  }
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    stage[wid][0][3 * lane + c] = o[c];
-    stage[wid][1][3 * lane + c] = o[3 + c];
-  }
-  // STORE 2 (diagnostic): the same stores to the sorted slot, in place of
-  // the original index.
-  dst[wid][lane] = live ? (STORE == 2 ? s + (t < 0) : t) : -1;
+  for (int c = 0; c < 6; ++c) stage[wid][6 * lane + c] = out[c];
+  dst[wid][lane] = live ? order[sl] : -1;
   __syncwarp();
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const int q = 32 * j + lane, p = q / 3, c = q - 3 * p;
-    const long long d = dst[wid][p];
-    if (d >= 0) {
-      vel_out[3 * d + c] = stage[wid][0][q];
-      k1[3 * d + c] = stage[wid][1][q];
-    }
+  for (int j = 0; j < 6; ++j) {
+    const int q = 32 * j + lane, p = q / 6;
+    const long long t = dst[wid][p];
+    if (t >= 0) rows[6 * t + (q - 6 * p)] = stage[wid][q];
   }
 }
 
@@ -194,40 +161,12 @@ __global__ void __launch_bounds__(fst::kThreads) g2p_flip_kernel(const long long
 extern "C" int fst_g2p_flip(const long long* order, const float* pcs, const float* vels,
                             const float* u, const float* v, const float* w,
                             const float* old_u, const float* old_v, const float* old_w,
-                            float* vel_out, float* k1, long long n, int nx,
-                            int ny, int nz, float beta, void* stream) {
+                            float* rows, long long n, int nx, int ny, int nz, float beta,
+                            void* stream) {
   if (n > 0) {
-    g2p_flip_kernel<3><<<fst::blocks_for(n), fst::kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        order, pcs, vels, u, v, w, old_u, old_v, old_w, vel_out, k1, n, nx, ny, nz, beta);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Store trial: variant 0 stores each float where it goes, variant 1 writes a
-// warp's rows as whole runs.
-extern "C" int fst_g2p_flip_variant(const long long* order, const float* pcs,
-                                    const float* vels, const float* u, const float* v,
-                                    const float* w, const float* old_u, const float* old_v,
-                                    const float* old_w, float* vel_out, float* k1, long long n,
-                                    int nx, int ny, int nz, float beta, int variant,
-                                    void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n == 0) return static_cast<int>(cudaGetLastError());
-  if (variant == 0) {
-    g2p_flip_kernel<0><<<fst::blocks_for(n), fst::kThreads, 0, s>>>(
-        order, pcs, vels, u, v, w, old_u, old_v, old_w, vel_out, k1, n, nx, ny, nz, beta);
-  } else if (variant == 1) {
-    g2p_flip_kernel<1><<<fst::blocks_for(n), fst::kThreads, 0, s>>>(
-        order, pcs, vels, u, v, w, old_u, old_v, old_w, vel_out, k1, n, nx, ny, nz, beta);
-  } else if (variant == 2) {
-    g2p_flip_kernel<2><<<fst::blocks_for(n), fst::kThreads, 0, s>>>(
-        order, pcs, vels, u, v, w, old_u, old_v, old_w, vel_out, k1, n, nx, ny, nz, beta);
-  } else if (variant == 3) {
-    g2p_flip_kernel<3><<<fst::blocks_for(n), fst::kThreads, 0, s>>>(
-        order, pcs, vels, u, v, w, old_u, old_v, old_w, vel_out, k1, n, nx, ny, nz, beta);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    g2p_flip_kernel<<<fst::blocks_for(n), fst::kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+        order, pcs, vels, u, v, w, old_u, old_v, old_w, rows, n, nx, ny, nz, beta);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,29 +9,31 @@
 //
 // Bound on the H100: device-memory bytes, the candidate field read once and
 // phi and cpos written once: 28 B a cell, 59 MB at 128^3, about 18 us at
-// 3.35 TB/s. What held the first, one-thread-a-cell form back was its issue
-// rate: 81 scalar loads of the AoS field, a 6-way bounds test and an IEEE
-// sqrt for every one of the 27 candidates, about 30 instructions each.
+// 3.35 TB/s. The one-thread-a-cell form this replaced was held back by its
+// issue rate: 81 scalar loads of the AoS field, a 6-way bounds test and an
+// IEEE sqrt for each of the 27 candidates. Taking the sqrt only where d2
+// beats the best's d2 saves little: some lane of a warp nearly always
+// takes it, so the warp does (PERF.md, section 6).
 //
 // Design:
-//   * A block owns a tile of kCX x kTY x kTZ cells. Its warps are kTY
+//   * A block owns a tile of kCX x kTY x 32 cells: its warps are kTY
 //     consecutive y, its lanes 32 consecutive z, and each thread walks kCX
-//     cells along x, so the stores of a warp are contiguous runs.
+//     cells along x, so a warp's stores are contiguous runs. Of the tiles
+//     measured on the card, 8 x 8 was the fastest at 128^3 and within 7%
+//     of the best at 64^3 (PERF.md, section 6).
 //   * The tile's candidates, grown by one cell on each side, are staged in
-//     shared memory as three SoA float planes. Each halo row is a
-//     contiguous run of the (nx, ny, nz, 3) field, read coalesced; FAR is
-//     written where the halo leaves the grid, so the inner loop makes no
-//     bounds test.
-//   * Walking x, a thread keeps the candidates of three x-planes (9 each) in
-//     registers and loads only the next plane's 9 for the next cell.
-//   * The filter: d2 = ex^2 + ey^2 + ez^2 in the plain version's order, and
-//     the sqrt and the strict `<` only where d2 is below the current best's
-//     d2. sqrtf is correctly rounded, so it is monotone non-decreasing, and
-//     so is subtracting r under round-to-nearest: d2 >= best_d2 implies
-//     dist >= best, which the strict `<` rejects anyway. Near-ties whose
-//     sqrt rounds equal still go through the real compare, so the first
-//     winner is kept as before, ties included.
-// Any nx, ny, nz >= 1: a tile past the grid's edge is masked.
+//     shared memory as the field lies: each halo row is 3 x 34 contiguous
+//     floats, copied by one warp with 4 B cp.async, and FAR is written where
+//     the halo leaves the grid, so the inner loop makes no bounds test. A
+//     lane reads candidate h at 3h: stride 3, no bank conflicts. (Three SoA
+//     planes cost more index arithmetic in the de-interleave than they
+//     saved.)
+//   * One sqrt a cell (pick): the 27 d2 in the plain version's order, their
+//     minimum m, and the first candidate with d2 <= m (1 + 2^-12); a
+//     near-tie or a candidate very close to the centre falls back to the
+//     plain version's loop for that cell.
+// Bit for bit the plain version, ties included. Any nx, ny, nz >= 1: a tile
+// past the grid's edge is masked.
 //
 // Compile with -fmad=false: a contracted multiply-add changes dist in the
 // last bit, a `<` tie then picks another candidate, and cpos stops matching
@@ -40,7 +42,12 @@
 
 namespace {
 
-constexpr int kTZ = 32;  // cells a tile along z: a warp's lanes
+constexpr int kTZ = 32;          // cells a tile along z: a warp's lanes
+constexpr int kCX = 8, kTY = 8;  // cells a thread walks along x; warps along y
+constexpr int kThreads = kTY * kTZ;
+constexpr int kHY = kTY + 2, kHZ = kTZ + 2;
+constexpr int kRow = 3 * kHZ;  // floats of a halo row, as the field lies
+constexpr int kHalo = (kCX + 2) * kHY * kHZ;  // halo cells
 
 // The best candidate so far: its dist and d2, and its coordinates.
 struct Best {
@@ -56,48 +63,27 @@ __device__ __forceinline__ void wait_copies() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// The staged halo of a tile: candidate h of the (hx, hy, hz) halo, either
-// as the field lies, (x, y, z) at 3h (AoS), or in three planes of kHalo
-// floats (SoA, trial).
-template <bool SOA, int kHalo>
-struct Halo {
-  const float* s;
-  __device__ __forceinline__ float3 at(int h) const {
-    if (SOA) return make_float3(s[h], s[kHalo + h], s[2 * kHalo + h]);
-    return make_float3(s[3 * h], s[3 * h + 1], s[3 * h + 2]);
-  }
-};
-
-// One candidate against the best so far: the plain version's step, the
-// sqrt only where d2 is below the best's d2.
-__device__ __forceinline__ void visit(float3 a, float fx, float fy, float fz, float r,
-                                      Best& b) {
-  const float ex = a.x - fx;
-  const float ey = a.y - fy;
-  const float ez = a.z - fz;
-  const float d2 = ex * ex + ey * ey + ez * ez;
-  if (d2 < b.d2) {
-    const float dist = sqrtf(d2) - r;
-    if (dist < b.dist) {
-      b = {dist, d2, a.x, a.y, a.z};
-    }
-  }
-}
-
 // The plain version's loop over a cell's 27 candidates, hof(k) the halo
-// index of candidate k = (dx, dy, dz) in row-major order.
-template <typename T, typename H>
-__device__ __forceinline__ Best filter_loop(T halo, H hof, float fx, float fy, float fz,
-                                            float r) {
+// index of candidate k = (dx, dy, dz) in row-major order; the sqrt only
+// where d2 is below the best's d2 (sqrtf is correctly rounded, so d2 >=
+// best_d2 gives dist >= best, which the strict `<` rejects anyway).
+template <typename H>
+__device__ __noinline__ Best plain_loop(const float* halo, H hof, float fx, float fy,
+                                        float fz, float r) {
   Best b = {CUDART_INF_F, CUDART_INF_F, fst::kFar, fst::kFar, fst::kFar};
 #pragma unroll 1
-  for (int k = 0; k < 27; ++k) visit(halo.at(hof(k)), fx, fy, fz, r, b);
+  for (int k = 0; k < 27; ++k) {
+    const float* c = halo + 3 * hof(k);
+    const float ex = c[0] - fx;
+    const float ey = c[1] - fy;
+    const float ez = c[2] - fz;
+    const float d2 = ex * ex + ey * ey + ez * ez;
+    if (d2 < b.d2) {
+      const float dist = sqrtf(d2) - r;
+      if (dist < b.dist) b = {dist, d2, c[0], c[1], c[2]};
+    }
+  }
   return b;
-}
-
-template <typename T, typename H>
-__device__ __noinline__ Best sequential(T halo, H hof, float fx, float fy, float fz, float r) {
-  return filter_loop(halo, hof, fx, fy, fz, r);
 }
 
 // The cell's winner from its 27 squared distances d2[k], k = (dx, dy, dz)
@@ -133,47 +119,20 @@ __device__ __forceinline__ bool pick(const float (&d2)[27], H hof, float r, floa
   return first == m;
 }
 
-// The halo of the tile at (x0, y0, z0) into shared memory; FAR where it
-// leaves the grid. AoS: each halo row, 3 * (kTZ + 2) contiguous floats of
-// the field, is copied by one warp with 4 B cp.async as it lies. SoA
-// (trial): every float of the halo de-interleaved into its plane. The
-// caller waits for the copies.
-template <int CX, int TY, bool SOA>
-__device__ __forceinline__ void stage(const float* __restrict__ cpos0, float* sc, int x0,
+// The halo of the tile at (x0, y0, z0) into shared memory, row by row.
+__device__ __forceinline__ void stage(const float* __restrict__ cpos0, float* halo, int x0,
                                       int y0, int z0, int nx, int ny, int nz) {
-  constexpr int kHY = TY + 2, kHZ = kTZ + 2, kRow = 3 * kHZ;
-  constexpr int kHalo = (CX + 2) * kHY * kHZ;
-  if (SOA) {
-    constexpr int kFloats = 3 * kHalo, kThreadsHere = TY * kTZ;
-#pragma unroll
-    for (int it = 0; it < (kFloats + kThreadsHere - 1) / kThreadsHere; ++it) {
-      const int q = it * kThreadsHere + threadIdx.x;
-      if (q < kFloats) {
-        const int row = q / kRow, f = q - row * kRow;
-        const int hz = f / 3, comp = f - 3 * hz;
-        const int hx = row / kHY, hy = row - hx * kHY;
-        const int X = x0 - 1 + hx, Y = y0 - 1 + hy, Z = z0 - 1 + hz;
-        float* dst = sc + comp * kHalo + row * kHZ + hz;
-        if (X >= 0 && X < nx && Y >= 0 && Y < ny && Z >= 0 && Z < nz) {
-          copy_async(dst, cpos0 + 3 * ((static_cast<long long>(X) * ny + Y) * nz + Z) + comp);
-        } else {
-          *dst = fst::kFar;
-        }
-      }
-    }
-    return;
-  }
   constexpr int kPer = (kRow + 31) / 32;  // floats of a row a lane copies
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   int zs[kPer];
 #pragma unroll
   for (int j = 0; j < kPer; ++j) zs[j] = z0 - 1 + (lane + 32 * j) / 3;
-  for (int row = warp; row < (CX + 2) * kHY; row += TY) {
+  for (int row = warp; row < (kCX + 2) * kHY; row += kTY) {
     const int hx = row / kHY, hy = row - hx * kHY;
     const int X = x0 - 1 + hx, Y = y0 - 1 + hy;
     const bool in = X >= 0 && X < nx && Y >= 0 && Y < ny;
     const float* src = cpos0 + 3 * ((static_cast<long long>(X) * ny + Y) * nz + z0 - 1);
-    float* dst = sc + row * kRow;
+    float* dst = halo + row * kRow;
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
       const int f = lane + 32 * j;
@@ -188,57 +147,42 @@ __device__ __forceinline__ void stage(const float* __restrict__ cpos0, float* sc
   }
 }
 
-// MODE 0 (trial): the plain version's loop, the sqrt where d2 beats the
-// best's. MODE 2 (trial): the staging and the stores alone, each cell's
-// own candidate (not the pass). MODE 3: the 27 d2, one sqrt (pick).
-template <int CX, int TY, int MODE, bool SOA>
-__global__ void __launch_bounds__(TY * kTZ)
+__global__ void __launch_bounds__(kThreads)
     neighborhood_pass_kernel(const float* __restrict__ cpos0, float* __restrict__ phi,
                              float* __restrict__ cpos, int nx, int ny, int nz, float r) {
-  constexpr int kHY = TY + 2, kHZ = kTZ + 2, kHalo = (CX + 2) * kHY * kHZ;
-  __shared__ float sc[3 * kHalo];
-  const int x0 = blockIdx.x * CX, y0 = blockIdx.y * TY, z0 = blockIdx.z * kTZ;
-  stage<CX, TY, SOA>(cpos0, sc, x0, y0, z0, nx, ny, nz);
+  __shared__ float halo[3 * kHalo];
+  const int x0 = blockIdx.x * kCX, y0 = blockIdx.y * kTY, z0 = blockIdx.z * kTZ;
+  stage(cpos0, halo, x0, y0, z0, nx, ny, nz);
   wait_copies();
   __syncthreads();
 
-  const Halo<SOA, kHalo> halo{sc};
   const int ty = threadIdx.x / kTZ, tz = threadIdx.x % kTZ;
   const int y = y0 + ty, z = z0 + tz;
   if (y >= ny || z >= nz) return;
   const float fy = static_cast<float>(y), fz = static_cast<float>(z);
-  auto base = [=](int hx) { return (hx * kHY + ty) * kHZ + tz; };
 #pragma unroll
-  for (int i = 0; i < CX; ++i) {
+  for (int i = 0; i < kCX; ++i) {
     const int x = x0 + i;
     if (x >= nx) break;
     const float fx = static_cast<float>(x);
-    auto hof = [=](int k) { return base(i + k / 9) + ((k / 3) % 3) * kHZ + k % 3; };
-    Best b;
-    if (MODE == 0) {
-      b = filter_loop(halo, hof, fx, fy, fz, r);
-    } else if (MODE == 2) {
-      const float3 c = halo.at(hof(13));
-      b = {c.x, 0.0f, c.x, c.y, c.z};
-    } else {
-      float d2[27];
+    auto hof = [=](int k) { return ((i + k / 9) * kHY + ty + (k / 3) % 3) * kHZ + tz + k % 3; };
+    float d2[27];
 #pragma unroll
-      for (int k = 0; k < 27; ++k) {
-        const float3 c = halo.at(hof(k));
-        const float ex = c.x - fx;
-        const float ey = c.y - fy;
-        const float ez = c.z - fz;
-        d2[k] = ex * ex + ey * ey + ez * ez;
-      }
-      int h;
-      if (pick(d2, hof, r, b.dist, h)) {
-        const float3 c = halo.at(h);
-        b.x = c.x;
-        b.y = c.y;
-        b.z = c.z;
-      } else {
-        b = sequential(halo, hof, fx, fy, fz, r);
-      }
+    for (int k = 0; k < 27; ++k) {
+      const float* c = halo + 3 * hof(k);
+      const float ex = c[0] - fx;
+      const float ey = c[1] - fy;
+      const float ez = c[2] - fz;
+      d2[k] = ex * ex + ey * ey + ez * ez;
+    }
+    Best b;
+    int h;
+    if (pick(d2, hof, r, b.dist, h)) {
+      b.x = halo[3 * h];
+      b.y = halo[3 * h + 1];
+      b.z = halo[3 * h + 2];
+    } else {
+      b = plain_loop(halo, hof, fx, fy, fz, r);
     }
     const long long t = (static_cast<long long>(x) * ny + y) * nz + z;
     phi[t] = b.dist;
@@ -248,47 +192,15 @@ __global__ void __launch_bounds__(TY * kTZ)
   }
 }
 
-template <int CX, int TY, int MODE, bool SOA>
-int launch(const float* cpos0, float* phi, float* cpos, int nx, int ny, int nz, float r,
-           cudaStream_t stream) {
-  const dim3 grid((nx + CX - 1) / CX, (ny + TY - 1) / TY, (nz + kTZ - 1) / kTZ);
-  neighborhood_pass_kernel<CX, TY, MODE, SOA><<<grid, TY * kTZ, 0, stream>>>(
-      cpos0, phi, cpos, nx, ny, nz, r);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" int fst_neighborhood_pass(const float* cpos0, float* phi, float* cpos,
                                      int nx, int ny, int nz, float r,
                                      void* stream) {
-  if (static_cast<long long>(nx) * ny * nz == 0) return static_cast<int>(cudaGetLastError());
-  return launch<4, 8, 3, false>(cpos0, phi, cpos, nx, ny, nz, r,
-                                static_cast<cudaStream_t>(stream));
-}
-
-// Tile trial: the kernel at tile (cx cells a thread along x, ty warps along
-// y) and mode (0, 2, 3; plus 10 with the SoA staging) chosen by the caller.
-// Returns cudaErrorInvalidValue for a tile that is not built.
-extern "C" int fst_neighborhood_pass_tile(const float* cpos0, float* phi, float* cpos,
-                                          int nx, int ny, int nz, float r, int cx, int ty,
-                                          int mode, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (static_cast<long long>(nx) * ny * nz == 0) return static_cast<int>(cudaGetLastError());
-#define FST_TILE(CX, TY, MODE, SOA)                                         \
-  if (cx == CX && ty == TY && mode == MODE + 10 * SOA)                      \
-    return launch<CX, TY, MODE, SOA>(cpos0, phi, cpos, nx, ny, nz, r, s);
-  FST_TILE(1, 8, 3, false)
-  FST_TILE(2, 8, 3, false)
-  FST_TILE(4, 8, 3, false)
-  FST_TILE(8, 8, 3, false)
-  FST_TILE(4, 4, 3, false)
-  FST_TILE(8, 4, 3, false)
-  FST_TILE(4, 8, 0, false)
-  FST_TILE(4, 8, 2, false)
-  FST_TILE(4, 8, 3, true)
-  FST_TILE(4, 8, 0, true)
-  FST_TILE(4, 8, 2, true)
-#undef FST_TILE
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(nx) * ny * nz > 0) {
+    const dim3 grid((nx + kCX - 1) / kCX, (ny + kTY - 1) / kTY, (nz + kTZ - 1) / kTZ);
+    neighborhood_pass_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        cpos0, phi, cpos, nx, ny, nz, r);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

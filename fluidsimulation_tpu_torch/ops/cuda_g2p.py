@@ -22,35 +22,8 @@ from ..core.interp import interp_mac3_vec
 
 KERNEL = _build.Kernel(
     "fst_g2p_flip",
-    [_build.P] * 11 + [_build.L, _build.I, _build.I, _build.I, _build.F],
+    [_build.P] * 10 + [_build.L, _build.I, _build.I, _build.I, _build.F],
 )
-
-
-# Store trial only: 0 stores each float where it goes, 1 writes a warp's
-# rows as whole runs, 2 (diagnostic, a wrong order) the same to the sorted
-# slots, 3 as 1 into one (N, 6) array whose halves are vel' and k1.
-VARIANT_KERNEL = _build.Kernel(
-    "fst_g2p_flip_variant",
-    [_build.P] * 11 + [_build.L, _build.I, _build.I, _build.I, _build.F, _build.I],
-)
-VARIANTS = (0, 1, 2, 3)
-
-
-def g2p_flip_variant(cfg: SimConfig, order, pcs, vels, u, v, w, old_u, old_v, old_w, beta,
-                     variant):
-    """The kernel's store variant ``variant`` (store trial)."""
-    n = pcs.shape[0]
-    if variant == 3:
-        rows = torch.empty((n, 6), dtype=torch.float32, device=pcs.device)
-        vel_out, k1 = rows[:, :3], rows[:, 3:]
-    else:
-        vel_out = torch.empty((n, 3), dtype=torch.float32, device=pcs.device)
-        k1 = torch.empty((n, 3), dtype=torch.float32, device=pcs.device)
-    VARIANT_KERNEL.launch(pcs.device, order.data_ptr(), pcs.data_ptr(), vels.data_ptr(),
-                          *(g.data_ptr() for g in (u, v, w, old_u, old_v, old_w)),
-                          vel_out.data_ptr(), k1.data_ptr(), n, cfg.nx, cfg.ny, cfg.nz,
-                          float(beta), variant)
-    return vel_out, k1
 
 
 def g2p_flip_plain(cfg: SimConfig, order, pcs, vels, u, v, w, old_u, old_v, old_w, beta):
@@ -92,7 +65,7 @@ def g2p_flip(cfg: SimConfig, order, pcs, vels, u, v, w, old_u, old_v, old_w, bet
         _build.check(pcs, "pcs", (n, 3)),
         _build.check(vels, "vels", (n, 3)),
         *grids,
-        vel_out.data_ptr(), k1.data_ptr(),
+        rows.data_ptr(),
         n, cfg.nx, cfg.ny, cfg.nz, float(beta),
     )
     return vel_out, k1

@@ -2,9 +2,9 @@
 (csrc/seed.cu) and its plain PyTorch version.
 
 Replaces fluidsimulation_tpu/ops/pallas_seed.py::neighborhood_pass_pallas.
-The kernel stages a tile's candidates through shared memory and takes the
-square root only for a candidate whose squared distance beats the best's;
-it is bit for bit the plain version. A CPU tensor takes the plain version;
+The kernel stages a tile's candidates through shared memory and takes one
+square root a cell, that of the least squared distance; it is bit for bit
+the plain version. A CPU tensor takes the plain version;
 a CUDA tensor launches the kernel.
 """
 
@@ -24,17 +24,6 @@ KERNEL = _build.Kernel(
     "fst_neighborhood_pass",
     [_build.P, _build.P, _build.P, _build.I, _build.I, _build.I, _build.F],
 )
-# Tile trial only: the kernel at another tile (cells a thread along x, warps
-# along y).
-TILE_KERNEL = _build.Kernel(
-    "fst_neighborhood_pass_tile",
-    [_build.P, _build.P, _build.P, _build.I, _build.I, _build.I, _build.F] + [_build.I] * 3,
-)
-# (cx, ty, mode): mode 3 the pass (one sqrt a cell), 0 the plain loop with
-# the sqrt where d2 beats the best's, 2 the staging and the stores alone
-# (not the pass); 10 + mode with the halo staged as three SoA planes.
-TILES = ((1, 8, 3), (2, 8, 3), (4, 8, 3), (8, 8, 3), (4, 4, 3), (8, 4, 3), (4, 8, 0), (4, 8, 2),
-         (4, 8, 13), (4, 8, 10), (4, 8, 12))
 
 
 def dist(ax, ay, az, bx, by, bz):
@@ -83,15 +72,3 @@ def neighborhood_pass(cfg: SimConfig, cpos0):
     )
     return phi, cpos
 
-
-def neighborhood_pass_tile(cfg: SimConfig, cpos0, tile):
-    """The kernel at ``tile`` = (cx, ty, mode), one of TILES (tile trial)."""
-    nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
-    src = _build.check(cpos0, "cpos0", (nx, ny, nz, 3))
-    phi = torch.empty((nx, ny, nz), dtype=torch.float32, device=cpos0.device)
-    cpos = torch.empty((nx, ny, nz, 3), dtype=torch.float32, device=cpos0.device)
-    TILE_KERNEL.launch(
-        cpos0.device, src, phi.data_ptr(), cpos.data_ptr(),
-        nx, ny, nz, float(cfg.particle_radius), *tile,
-    )
-    return phi, cpos
