@@ -32,9 +32,10 @@ Phases, each printing before the next:
      at 64^3/ppc 2 (after phase 5) and at 128^3/ppc 2 (after phase 6), on
      the inputs each kernel received in the last step of the path; P2G, the
      27-neighbourhood pass and the FLIP gather launched twice must give the
-     same bits; at the last three, every
-     kernel timed, the sweeps of each axis timed alone, the SOR's fluid
-     cells per colour, grid barriers and the cost of one barrier
+     same bits; at the last three, every kernel's device time under
+     torch.profiler (the report's ms) and its time by events, the sweeps
+     of each axis timed alone, the SOR's fluid cells per colour, grid
+     barriers and the cost of one barrier
   3  20 steps at 128^3; launch counts per step; median step time
   4  the 32^3 card step of phase 2 vs the same step on the CPU; then the
      NaN rule: a 32^3 state with one NaN position, two guarded steps on the
@@ -110,6 +111,25 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean milliseconds a run of fn() keeps the card busy: the device
+    events (kernels, copies, fills) it launches, summed under
+    torch.profiler, after one warm-up run. Unlike cuda_ms it leaves out the
+    gaps where the card waits for the host to launch the next call, which
+    set cuda_ms of a kernel shorter than about 0.03 ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
 def capture(store: dict):
@@ -334,11 +354,13 @@ def check_kernels(table, keys, captured, label: str, results: dict, timed=(),
                 f"bound {b_ms!r} ms ({b_by})")
         if key in timed:
             reps_plain = 2 if key == "sweep" else 10
-            ms = cuda_ms(lambda: k["wrapper"](*args), 20)
+            ms = device_ms(lambda: k["wrapper"](*args), 20)
+            wall_ms = cuda_ms(lambda: k["wrapper"](*args), 20)
             plain_ms = cuda_ms(lambda: k["plain"](*args), reps_plain)
             if key in reported:
                 entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-            line += f"; kernel {ms!r} ms, plain {plain_ms!r} ms"
+            line += (f"; kernel {ms!r} ms of device time ({wall_ms!r} ms by events, back to "
+                     f"back), plain {plain_ms!r} ms")
         say(line)
 
 

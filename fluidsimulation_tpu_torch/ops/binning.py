@@ -41,6 +41,8 @@ class CSR:
 
 @dataclasses.dataclass
 class SortedParticles:
+    """A step's particles in CSR order, gathered once (sort_particles)."""
+
     csr: CSR
     pcs: torch.Tensor   # (N, 3) float32: (pos * cell_scale(cfg))[csr.order], the floats build_csr binned
     vels: torch.Tensor  # (N, 3) float32: vel[csr.order]

@@ -4,8 +4,8 @@
 Replaces fluidsimulation_tpu/ops/pallas_seed.py::neighborhood_pass_pallas.
 The kernel stages a tile's candidates through shared memory and takes one
 square root a cell, that of the least squared distance; it is bit for bit
-the plain version. A CPU tensor takes the plain version;
-a CUDA tensor launches the kernel.
+the plain version. A CPU tensor takes the plain version; a CUDA tensor
+launches the kernel.
 """
 
 from __future__ import annotations
@@ -71,4 +71,3 @@ def neighborhood_pass(cfg: SimConfig, cpos0):
         nx, ny, nz, float(cfg.particle_radius),
     )
     return phi, cpos
-

@@ -2,10 +2,10 @@
 
 One frame in the order of GPFluidSim::Simulate (Simulation.cpp:513-566):
 
-  advect -> CSR particle index and the sorted gather -> level set (seed, 27-neighbourhood pass,
-  24 sweeps) -> P2G -> extrapolate -> snapshot old grids -> gravity ->
-  project (RHS, diagonal, SOR x100, apply) -> FLIP update (+ next k1) ->
-  blur phi
+  advect -> CSR particle index and the one sorted gather -> level set
+  (seed, 27-neighbourhood pass, 24 sweeps) -> P2G -> extrapolate ->
+  snapshot old grids -> gravity -> project (RHS, diagonal, SOR x100,
+  apply) -> FLIP update (+ next k1) -> blur phi
 
 The port runs the semantics of the JAX package's exact path (``fast=False``
 and its exact tiers): the CSR index is unbounded, so there are no slot

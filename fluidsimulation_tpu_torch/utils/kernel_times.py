@@ -11,10 +11,10 @@ in PyTorch). Back-to-back wrapper calls are bound by the host's launch cost
 are also timed alone under torch.profiler (``g2p_kernel_ms``,
 ``seed_kernel_ms``), and the FLIP update by its device time
 (``flip_device_ms``: every kernel and copy it launches). P2G, the FLIP
-gather and the pass launched twice on the same
-inputs must give equal results (``*_deterministic``); ``walk_stats`` says
-how P2G's work lies over the cells. The median step (CUDA events, a sync
-after each step, the first two steps left out) comes with them.
+gather and the pass launched twice on the same inputs must give equal
+results (``*_deterministic``); ``walk_stats`` says how P2G's work lies over
+the cells. The median step (CUDA events, a sync after each step, the first
+two steps left out) comes with them.
 
 Run on the card from the root of a checkout:
 

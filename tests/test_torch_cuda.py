@@ -5,18 +5,21 @@ Marked ``cuda``: each test skips without a CUDA card. On a machine with one
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Inputs are made on the CPU at 32^3 and carried to the card. The seed and
-sweep kernels and the SOR are compiled with -fmad=false and must match bit
-for bit, also at shapes that break the sweep kernel's 32-line tiles and
-32-plane chunks and the SOR's colour-split layout (13x9x17, 20x12x24,
-8x8x200, whose z-lines are longer than six chunks, and 64^3); the P2G
+Inputs are made on the CPU at 32^3 and carried to the card. The
+27-neighbourhood pass, the sweeps, the SOR and the FLIP gather are compiled
+with -fmad=false and must match bit for bit, also at shapes that break
+their tiles (13x9x17, 20x12x24, 8x8x200, whose z-lines are longer than six
+of the sweeps' chunks, and 64^3): the pass with exact distance ties,
+one-ulp near-ties, candidates at a cell's centre and all-FAR regions; the
+FLIP gather with queries past every edge, 3,000 particles in one cell, NaN
+particles in the CSR's tail slots and a last block partly empty. The P2G
 kernel sums in another order than index_add_ (validity equal, rtol = atol
 = 2e-4 on valid faces), at ppc 1 and at ppc 2, at those odd shapes (ragged
-cell tiles) and with 3,000 particles in one cell (a halo walked in chunks);
-two P2G launches are bit-equal; the G2P kernel within
-1e-5 abs, and NaN where a coordinate is NaN. A state with one NaN position
-steps twice on the card without a raise (the NaN rule). The combined-key pack (pure copies) must equal its
-plain version bit for bit at small odd shapes and at 64^3.
+cell tiles) and with 3,000 particles in one cell (a halo walked in chunks).
+P2G, the pass and the FLIP gather launched twice give equal bits. A state
+with one NaN position steps twice on the card without a raise (the NaN
+rule). The combined-key pack (pure copies) must equal its plain version
+bit for bit at small odd shapes and at 64^3.
 """
 
 import numpy as np
