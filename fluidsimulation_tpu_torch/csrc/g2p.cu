@@ -36,8 +36,8 @@
 //     fastest, so a warp's 32 rows land far apart. The two outputs are the
 //     halves of one (N, 6) array, so a particle's 24 B are one run, and a
 //     warp writes its rows through shared memory as whole runs (PERF.md,
-//     section 6: 0.13 ms at 128^3 with six scalar stores a particle, 0.056
-//     ms so).
+//     section 6: on the H100 at 128^3, 0.13 ms with six scalar stores a
+//     particle, 0.056 ms so).
 //   * Every slot is covered, the non-finite positions that the CSR index
 //     keeps past start[ncell] included: such a particle reads in-range
 //     cells and returns NaN for vel' and k1, as the plain version does.
