@@ -46,8 +46,10 @@ Phases, each printing before the next:
   7  combined-key interpolation, on the final state of phase 3 (128^3,
      after phase 3's kernel checks; its times reported) and of phase 5
      (64^3 ppc 2; times printed only): the pack's launch count, the pack vs
-     its plain form bit for bit, the interpolation vs the pointwise one,
-     RK3 vs advect_rk3_cached
+     its plain form bit for bit (int32 views) and a second launch bit-equal,
+     the interpolation vs the pointwise one, RK3 vs advect_rk3_cached; the
+     pack's device time under torch.profiler (the report's ms) and its time
+     by events, beside a zero-fill of a table of the same bytes
   8  {"kernels": [...]} and then {"ok": true, "device": {...}}
 """
 
@@ -453,15 +455,18 @@ def run_combined(label, cfg, state, dt, results, card, report) -> int:
 
     With every count at 0: pack the grids (one kernel launch), interpolate
     every particle through the table and run RK3 stages 2-3 through it.
-    Then hold the table against the plain form bit for bit, the
+    Then hold the table against the plain form bit for bit (int32 views,
+    so NaN payloads and -0.0 count) and against a second launch, the
     interpolation against the pointwise interp_mac3_vec within 2e-6 x
     max(1, largest |face value|) (the JAX test's 2e-6, scaled to the
     state's velocities), and the positions against advect_rk3_cached within
     1e-6 m x the same scale: a one-ulp difference in stage 2 moves the
     stage-3 query by an ulp, and a steep field turns that into a velocity
     difference past the interpolation's own (PERF.md, section 6). Then time
-    the pack, its plain form, the torch.stack yardstick and both
-    interpolations; the pack's times go to the report if ``report``.
+    the pack (device time under torch.profiler, and by events), its plain
+    form, the torch.stack yardstick, a zero-fill of a table of the same
+    bytes and both interpolations; the pack's times go to the report if
+    ``report``.
     Returns the pack's launches in the drive."""
     from fluidsimulation_tpu_torch.core import cuda_pack
     from fluidsimulation_tpu_torch.core.interp import interp_mac3_vec
@@ -489,19 +494,25 @@ def run_combined(label, cfg, state, dt, results, card, report) -> int:
 
     plain = cuda_pack.pack_mac3_combined_plain(u, v, w)
     pack_err = float((tab - plain).abs().max())
+    exact = torch.equal(tab.view(torch.int32), plain.view(torch.int32))
+    del plain
+    again = torch.equal(tab.view(torch.int32), pack_mac3_combined(u, v, w).view(torch.int32))
     scale = max(1.0, *(float(g.abs().max()) for g in (u, v, w)))
     interp_err = float((vel - interp_mac3_vec(u, v, w, pc)).abs().max())
     pos_diff = (newpos - advect_rk3_cached(cfg, u, v, w, state.k1, state.pos, dt)).abs()
     pos_err = float(pos_diff.max())
     b_ms, b_by = bound("pack", (cfg,))
     say(f"phase 7 [{label}]: pack {tuple(tab.shape)} ({tab.numel() * 4} B) max abs err "
-        f"{pack_err!r}, bound {b_ms!r} ms ({b_by}); {pc.shape[0]} particles, largest |face| "
+        f"{pack_err!r} (bits equal: {exact}; a second launch's bits equal: {again}), bound "
+        f"{b_ms!r} ms ({b_by}); {pc.shape[0]} particles, largest |face| "
         f"{scale!r}: combined vs pointwise interpolation max abs diff {interp_err!r} (limit "
         f"{2e-6 * scale!r}); RK3 stages 2-3 through the table vs advect_rk3_cached "
         f"{pos_err!r} m (limit {1e-6 * scale!r}; {int((pos_diff > 1e-6).sum())} coordinates "
         f"past 1e-6 m)")
-    if not torch.equal(tab, plain):
+    if not exact:
         raise AssertionError(f"phase 7 [{label}]: pack not bit-exact (max abs err {pack_err})")
+    if not again:
+        raise AssertionError(f"phase 7 [{label}]: two pack launches on the same grids differ")
     if interp_err > 2e-6 * scale:
         raise AssertionError(f"phase 7 [{label}]: combined vs pointwise interpolation differ by "
                              f"{interp_err} > 2e-6 x {scale}")
@@ -511,7 +522,8 @@ def run_combined(label, cfg, state, dt, results, card, report) -> int:
     entry = results.setdefault("pack", {"max_abs_err": 0.0})
     entry["max_abs_err"] = max(entry["max_abs_err"], pack_err)
     views = cuda_pack.shifted_views(u, v, w)
-    ms = cuda_ms(lambda: pack_mac3_combined(u, v, w), 20)
+    ms = device_ms(lambda: pack_mac3_combined(u, v, w), 20)
+    wall_ms = cuda_ms(lambda: pack_mac3_combined(u, v, w), 20)
     plain_ms = cuda_ms(lambda: cuda_pack.pack_mac3_combined_plain(u, v, w), 10)
     # The yardstick: one torch.stack of the 51 shifted views (of grids padded
     # before timing) along a new last axis makes the table's 51 data lanes;
@@ -520,15 +532,16 @@ def run_combined(label, cfg, state, dt, results, card, report) -> int:
     # What the card's own fill reaches on the table's bytes: a store-rate
     # ceiling for the pack (printed, not a bound).
     scratch = torch.empty_like(tab)
-    fill_ms = cuda_ms(scratch.zero_, 20)
+    fill_ms = device_ms(scratch.zero_, 20)
     del scratch
     combined_ms = cuda_ms(lambda: interp_mac3_combined_vec(tab, dims, pc), 10)
     pointwise_ms = cuda_ms(lambda: interp_mac3_vec(u, v, w, pc), 10)
     if report:
         entry.update(launches=launches, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                      library_ms=library_ms)
-    say(f"phase 7 [{label}]: pack kernel {ms!r} ms, plain {plain_ms!r} ms, torch.stack of the "
-        f"51 views {library_ms!r} ms, zero-fill of a table {fill_ms!r} ms, bound {b_ms!r} ms; "
+    say(f"phase 7 [{label}]: pack kernel {ms!r} ms of device time ({wall_ms!r} ms by events, "
+        f"back to back), plain {plain_ms!r} ms, torch.stack of the 51 views {library_ms!r} ms, "
+        f"zero-fill of a table {fill_ms!r} ms of device time, bound {b_ms!r} ms; "
         f"interpolation of {pc.shape[0]} "
         f"particles: combined (table given) {combined_ms!r} ms, pointwise {pointwise_ms!r} ms "
         f"on {card}")

@@ -8,23 +8,45 @@
 //   lanes 12-23  V at x = i-1+dx, y = j+dy,   z = k+dz  (dx 3, dy 2, dz 2)
 //   lanes 24-50  W at x = i-1+dx, y = j-1+dy, z = k+dz  (dx 3, dy 3, dz 3)
 //   lanes 51-63  zero
-// with dz fastest, and 0 where the JAX pack's zero halo lies (U: y outside
-// [0, ny); V: x outside [0, nx); W: x or y outside). Pure copies and zeros,
-// no arithmetic: the table equals the plain version
-// (core/cuda_pack.py::pack_mac3_combined_plain) bit for bit. Any nx, ny >= 1
-// and nz >= 2; the Pallas kernel's shifted input copies and its ny % 8 rule
-// are Mosaic workarounds and are not ported.
+// with dz fastest, and +0.0 where the JAX pack's zero halo lies (U: y
+// outside [0, ny); V: x outside [0, nx); W: x or y outside). Pure copies
+// and zeros, no arithmetic: the table equals the plain version
+// (core/cuda_pack.py::pack_mac3_combined_plain) bit for bit, NaN payloads
+// and -0.0 included. Any nx, ny >= 1 and nz >= 2; the Pallas kernel's
+// shifted input copies and its ny % 8 rule are Mosaic workarounds and are
+// not ported.
 //
 // Bound on the H100: bytes. The function reads the three grids once and
 // writes the table once: 25,362,432 B and 532,676,608 B at 128^3 (0.167 ms
 // at 3.35 TB/s), 3,194,880 B and 66,060,288 B at 64^3 (0.0207 ms). The
-// grids (25 MB at 128^3) stay in the 50 MB L2, so the write stream is the
-// cost.
-// Design: thread t writes the t-th 16 B of the table, lanes 4q..4q+3 of one
-// row (q = t % 16), as one float4 store; a warp stores two whole rows, 512
-// contiguous bytes. The lane decode comes from a 64-entry table, staged in
-// shared memory so that the 16 different entries a warp reads at once are
-// served together. The reads are direct, with the halo tested per lane.
+// write stream is the cost; a zero-fill of the table's bytes runs near the
+// bound (PERF.md, section 6).
+//
+// Design: a block owns a tile of rows, one x index i, kTY consecutive j and
+// a chunk of up to kKC consecutive k (the whole z column up to 128^3). Its
+// rows are kTY runs of kc x 256 B, each contiguous in the table.
+//   1. The tile's grid windows are staged in shared memory as columns along
+//      z, one warp a column, 4 B cp.async per lane (consecutive z, so each
+//      copy instruction is coalesced): for each of the kTY + 2 y-slots
+//      (y = j0-1 .. j0+kTY) eight x-planes, U at x = i, i+1, V at i-1..i+1
+//      and W at i-1..i+1. A column outside its grid is written as +0.0, so
+//      the halo is tested once a column, not once a lane.
+//   2. Every thread stores the same four lanes of each row it writes
+//      (lanes 4q..4q+3, q = thread % 16), so it decodes their shared-memory
+//      offsets once. Lane l of row (j0+jj, k0+kk) lies at
+//      off[l] + jj * step[l] + kk: step is the y-slot stride for a data lane
+//      and 0 for a zero lane, which reads a run of +0.0. The row loop is
+//      four shared-memory loads and one float4 store: no division, no
+//      branch on the grid or the halo.
+//   3. A warp stores two whole rows, 512 contiguous bytes, with st.global.cs
+//      (evict-first), so the 533 MB table stream does not push the grids
+//      out of L2.
+// The column stride is the chunk's length + 2 rounded up to 3 mod 32, the
+// y-slot stride 8 columns + 9 floats: a warp's loads (16 lanes' offsets at
+// two consecutive k) then take 2 shared-memory wavefronts, against 3.5
+// without the padding. At 128^3 a block stages 42.8 KB, so five blocks
+// share an SM and one block's staging overlaps the others' stores.
+#include <algorithm>
 #include <climits>
 
 #include "common.cuh"
@@ -33,6 +55,9 @@ namespace {
 
 constexpr int kRow = 64;
 constexpr int kQuads = kRow / 4;  // float4 stores a row
+constexpr int kThreads = 256;
+constexpr int kRowsAPass = kThreads / kQuads;
+constexpr int kPlanes = 8;  // x-planes a y-slot: U i, i+1; V i-1..i+1; W i-1..i+1
 
 // Lane -> (grid: 0 U, 1 V, 2 W, 3 zero; dx, dy, dz), the JAX column order.
 struct Lane {
@@ -59,52 +84,133 @@ __constant__ Lane kLanes[kRow] = {
     {3, 0, 0, 0}, {3, 0, 0, 0}, {3, 0, 0, 0}, {3, 0, 0, 0},  // lanes 60-63
 };
 
-// The value of one lane of row (i, j, k). The JAX pack pads U by one zero
-// row on each side in y, V in x and W in both, so a lane's offset dx (dy)
-// is one past the grid's own index on a padded axis.
-__device__ __forceinline__ float lane_value(const Lane l, int i, int j, int k,
-                                            const float* __restrict__ u,
-                                            const float* __restrict__ v,
-                                            const float* __restrict__ w,
-                                            int nx, int ny, int nz) {
-  if (l.grid == kZero) return 0.0f;
-  const float* g;
-  int sx, sy, sz, px, py;  // the grid's shape; its pads before x and y
-  if (l.grid == 0) {
-    g = u; sx = nx + 1; sy = ny; sz = nz; px = 0; py = 1;
-  } else if (l.grid == 1) {
-    g = v; sx = nx; sy = ny + 1; sz = nz; px = 1; py = 0;
-  } else {
-    g = w; sx = nx; sy = ny; sz = nz + 1; px = 1; py = 1;
-  }
-  const int x = i + l.dx - px;
-  const int y = j + l.dy - py;
-  if (x < 0 || x >= sx || y < 0 || y >= sy) return 0.0f;
-  // z = k + dz <= nz - 2 + dz stays inside every grid's z extent.
-  return g[(static_cast<long long>(x) * sy + y) * sz + (k + l.dz)];
+// Shared-memory layout of a tile, in floats: column stride zs, y-slot
+// stride ss, and the offset of the zero run after the ty + 2 slots.
+struct Layout {
+  int zs, ss, zero;
+};
+
+Layout layout(int kcmax, int ty) {
+  const int zs = kcmax + 2 + ((3 - (kcmax + 2)) & 31);  // zs = 3 (mod 32)
+  const int ss = kPlanes * zs + 9;
+  return {zs, ss, (ty + 2) * ss};
 }
 
-__global__ void pack_mac3_combined_kernel(const float* __restrict__ u,
-                                          const float* __restrict__ v,
-                                          const float* __restrict__ w,
-                                          float4* __restrict__ tab, int nx,
-                                          int ny, int nz, long long quads) {
-  __shared__ Lane lanes[kRow];
-  if (threadIdx.x < kRow) lanes[threadIdx.x] = kLanes[threadIdx.x];
-  __syncthreads();
-  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (t >= quads) return;
+__device__ __forceinline__ void copy_async(float* smem, const float* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int TY, int KC, bool kStream>
+__global__ void __launch_bounds__(kThreads)
+    pack_mac3_combined_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                              const float* __restrict__ w, float4* __restrict__ tab, int nx,
+                              int ny, int nz, unsigned int nkc, unsigned int njt, Layout lay) {
+  extern __shared__ float stage[];
   const int nzk = nz - 1;
-  const unsigned int row = static_cast<unsigned int>(t / kQuads);
-  const int lane0 = 4 * static_cast<int>(t % kQuads);
-  const int k = static_cast<int>(row % nzk);
-  const unsigned int ij = row / nzk;
-  const int j = static_cast<int>(ij % ny);
-  const int i = static_cast<int>(ij / ny);
-  tab[t] = make_float4(lane_value(lanes[lane0], i, j, k, u, v, w, nx, ny, nz),
-                       lane_value(lanes[lane0 + 1], i, j, k, u, v, w, nx, ny, nz),
-                       lane_value(lanes[lane0 + 2], i, j, k, u, v, w, nx, ny, nz),
-                       lane_value(lanes[lane0 + 3], i, j, k, u, v, w, nx, ny, nz));
+  const unsigned int t = blockIdx.x / nkc;
+  const int k0 = static_cast<int>(blockIdx.x - t * nkc) * KC;
+  const int j0 = static_cast<int>(t % njt) * TY;
+  const int i = static_cast<int>(t / njt);
+  const int kc = min(KC, nzk - k0);
+  const int jv = min(TY, ny - j0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // 1. The windows: column c is y-slot c / 8 (y = j0 - 1 + slot), x-plane
+  //    c % 8. U and V columns hold z = k0 .. k0+kc, W columns one more.
+  for (int c = warp; c < (TY + 2) * kPlanes; c += kThreads / 32) {
+    const int s = c >> 3, p = c & 7;
+    const int y = j0 - 1 + s;
+    float* dst = stage + s * lay.ss + p * lay.zs;
+    const float* src = nullptr;
+    int len = kc + 1;
+    if (p < 2) {  // U at x = i + p
+      if (y >= 0 && y < ny) src = u + (static_cast<long long>(i + p) * ny + y) * nz;
+    } else if (p < 5) {  // V at x = i + p - 3
+      const int x = i + p - 3;
+      if (x >= 0 && x < nx && y >= 0 && y <= ny)
+        src = v + (static_cast<long long>(x) * (ny + 1) + y) * nz;
+    } else {  // W at x = i + p - 6
+      const int x = i + p - 6;
+      len = kc + 2;
+      if (x >= 0 && x < nx && y >= 0 && y < ny)
+        src = w + (static_cast<long long>(x) * ny + y) * (nz + 1);
+    }
+    if (src != nullptr) {
+      src += k0;
+      for (int z = lane; z < len; z += 32) copy_async(dst + z, src + z);
+    } else {
+      for (int z = lane; z < len; z += 32) dst[z] = 0.0f;
+    }
+  }
+  for (int z = threadIdx.x; z < kc; z += kThreads) stage[lay.zero + z] = 0.0f;
+  wait_copies();
+  __syncthreads();
+
+  // 2. This thread's four lanes: their offsets and y-slot steps.
+  const int q = threadIdx.x % kQuads;
+  int off[4], step[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const Lane l = kLanes[4 * q + e];
+    if (l.grid == kZero) {
+      off[e] = lay.zero;
+      step[e] = 0;
+    } else {
+      const int slot = l.dy + (l.grid == 1);
+      const int plane = l.dx + (l.grid == 0 ? 0 : l.grid == 1 ? 2 : 5);
+      off[e] = slot * lay.ss + plane * lay.zs + l.dz;
+      step[e] = lay.ss;
+    }
+  }
+
+  // 3. The rows: y-slot run jj, then a pass of 16 rows along k at a time.
+  const int r0 = threadIdx.x / kQuads;
+  for (int jj = 0; jj < jv; ++jj) {
+    const float* s0 = stage + off[0] + jj * step[0];
+    const float* s1 = stage + off[1] + jj * step[1];
+    const float* s2 = stage + off[2] + jj * step[2];
+    const float* s3 = stage + off[3] + jj * step[3];
+    float4* out = tab + (static_cast<long long>(i * ny + j0 + jj) * nzk + k0) * kQuads + q;
+    for (int kk = r0; kk < kc; kk += kRowsAPass) {
+      const float4 val = make_float4(s0[kk], s1[kk], s2[kk], s3[kk]);
+      if constexpr (kStream) {
+        __stcs(out + kk * kQuads, val);
+      } else {
+        out[kk * kQuads] = val;
+      }
+    }
+  }
+}
+
+template <int TY, int KC, bool kStream>
+int launch(const float* u, const float* v, const float* w, float* tab, int nx, int ny, int nz,
+           void* stream) {
+  const int nzk = nz - 1;
+  const int kcmax = std::min(KC, nzk);
+  const Layout lay = layout(kcmax, TY);
+  const size_t smem = static_cast<size_t>(lay.zero + kcmax) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(pack_mac3_combined_kernel<TY, KC, kStream>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned int nkc = (nzk + KC - 1) / KC, njt = (ny + TY - 1) / TY;
+  const long long blocks = static_cast<long long>(nx) * njt * nkc;
+  pack_mac3_combined_kernel<TY, KC, kStream>
+      <<<static_cast<unsigned int>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          u, v, w, reinterpret_cast<float4*>(tab), nx, ny, nz, nkc, njt, lay);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int check_args(int nx, int ny, int nz) {
+  if (nx < 1 || ny < 1 || nz < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(nx) * ny * (nz - 1);
+  if (rows > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
 }
 
 }  // namespace
@@ -113,12 +219,23 @@ __global__ void pack_mac3_combined_kernel(const float* __restrict__ u,
 extern "C" int fst_pack_mac3_combined(const float* u, const float* v,
                                       const float* w, float* tab, int nx,
                                       int ny, int nz, void* stream) {
-  if (nx < 1 || ny < 1 || nz < 2) return static_cast<int>(cudaErrorInvalidValue);
-  const long long rows = static_cast<long long>(nx) * ny * (nz - 1);
-  if (rows > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const long long quads = rows * kQuads;
-  pack_mac3_combined_kernel<<<fst::blocks_for(quads), fst::kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      u, v, w, reinterpret_cast<float4*>(tab), nx, ny, nz, quads);
-  return static_cast<int>(cudaGetLastError());
+  if (const int err = check_args(nx, ny, nz)) return err;
+  return launch<8, 128, true>(u, v, w, tab, nx, ny, nz, stream);
+}
+
+// Trial forms (tile rows kTY, chunk kKC, streaming stores or not), for
+// utils/kernel_times.py --pack-trials: 0 is the form above.
+extern "C" int fst_pack_mac3_combined_trial(const float* u, const float* v, const float* w,
+                                            float* tab, int nx, int ny, int nz, int form,
+                                            void* stream) {
+  if (const int err = check_args(nx, ny, nz)) return err;
+  switch (form) {
+    case 0: return launch<8, 128, true>(u, v, w, tab, nx, ny, nz, stream);
+    case 1: return launch<8, 128, false>(u, v, w, tab, nx, ny, nz, stream);
+    case 2: return launch<4, 128, true>(u, v, w, tab, nx, ny, nz, stream);
+    case 3: return launch<16, 128, true>(u, v, w, tab, nx, ny, nz, stream);
+    case 4: return launch<8, 64, true>(u, v, w, tab, nx, ny, nz, stream);
+    case 5: return launch<4, 64, true>(u, v, w, tab, nx, ny, nz, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -14,7 +14,13 @@ are also timed alone under torch.profiler (``g2p_kernel_ms``,
 gather and the pass launched twice on the same inputs must give equal
 results (``*_deterministic``); ``walk_stats`` says how P2G's work lies over
 the cells. The median step (CUDA events, a sync after each step, the first
-two steps left out) comes with them.
+two steps left out) comes with them. On the final grids of the first two
+configurations the combined-key pack (``core/cuda_pack.py``, no step calls
+it) is timed by events (``pack_ms``) and alone under torch.profiler
+(``pack_kernel_ms``), beside a zero-fill of a table of the same bytes, the
+card's store-rate ceiling (``pack_fill_ms``), and its bound
+(``pack_bound_ms``); two launches must give the same bits
+(``pack_deterministic``).
 
 Run on the card from the root of a checkout:
 
@@ -23,14 +29,16 @@ Run on the card from the root of a checkout:
 It imports the ``fluidsimulation_tpu_torch`` of the working directory, so a
 copy of this file at the root of an older checkout, run there as
 ``python kernel_times.py``, times that checkout's kernels. ``--dump DIR``
-saves each configuration's inputs and outputs of P2G, the pass and the FLIP
-update there; ``--against DIR`` runs this checkout's on inputs saved so (by
-another checkout) and reports whether its outputs equal the saved ones bit
-for bit (``p2g_equal_to_dump``, ``seed_equal_to_dump``,
-``flip_equal_to_dump``). The FLIP update is compared through
-``flip_update_carry(cfg, pos, vel, u, v, w, old_u, old_v, old_w, alpha)``,
-whose inputs every checkout takes and whose outputs are its gather's. Prints
-one JSON line per configuration, with the card's name and power limit.
+saves each configuration's inputs and outputs of P2G, the pass, the FLIP
+update and the pack there; ``--against DIR`` runs this checkout's on inputs
+saved so (by another checkout) and reports whether its outputs equal the
+saved ones bit for bit (``p2g_equal_to_dump``, ``seed_equal_to_dump``,
+``flip_equal_to_dump``, ``pack_equal_to_dump``; the pack's table through
+int32 views, so NaN payloads and -0.0 count). The FLIP update is compared
+through ``flip_update_carry(cfg, pos, vel, u, v, w, old_u, old_v, old_w,
+alpha)``, whose inputs every checkout takes and whose outputs are its
+gather's. Prints one JSON line per configuration, with the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -48,6 +56,8 @@ CONFIGS = (  # (label, grid, ppc, dt, steps)
     ("64^3 ppc 2", 64, 2, 1.0 / 120.0, 60),
     ("128^3 ppc 2", 128, 2, 1.0 / 120.0, 10),
 )
+PACK_CONFIGS = ("128^3 ppc 1", "64^3 ppc 2")  # the grids the pack is timed on
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at 700 W
 REPS = 20
 SITES = (
     ("ops.levelset", "neighborhood_pass", "seed"),
@@ -122,8 +132,13 @@ def same(a, b) -> bool:
     return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
 
 
+def bits(a, b) -> bool:
+    """Equal float32 tensors bit for bit (NaN payloads and -0.0 count)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def against_dump(fn, args, key: str, row, dump: Path | None, against: Path | None,
-                 tag: str) -> None:
+                 tag: str, equal=same) -> None:
     """Save fn's tensor arguments and outputs under ``dump``; or run fn on
     arguments saved under ``against`` and record whether its outputs equal
     the saved ones bit for bit. ``args`` is (cfg, *rest): tensors in rest
@@ -139,14 +154,36 @@ def against_dump(fn, args, key: str, row, dump: Path | None, against: Path | Non
         theirs = flat(fn(cfg, *(a.to(dev) if isinstance(a, torch.Tensor) else a
                                 for a in saved["args"])))
         want = [t.to(dev) for t in saved["out"]]
-        row[f"{key}_equal_to_dump"] = all(same(a, b) for a, b in zip(theirs, want))
+        row[f"{key}_equal_to_dump"] = all(equal(a, b) for a, b in zip(theirs, want))
         row[f"{key}_max_abs_diff_to_dump"] = max(
             float((a - b).nan_to_num(0.0).abs().max()) for a, b in zip(theirs, want))
         del saved, theirs, want
 
 
-def deterministic(fn, args) -> bool:
-    return all(same(a, b) for a, b in zip(flat(fn(*args)), flat(fn(*args))))
+def deterministic(fn, args, equal=same) -> bool:
+    return all(equal(a, b) for a, b in zip(flat(fn(*args)), flat(fn(*args))))
+
+
+def pack_times(cfg, state, row, dump: Path | None, against: Path | None, tag: str) -> None:
+    """The combined-key pack on the state's grids: by events, alone under
+    torch.profiler, the zero-fill of a table of the same bytes, the bound,
+    two launches bit-equal, and ``--dump``/``--against``."""
+    from fluidsimulation_tpu_torch.core import cuda_pack
+
+    def pack(cfg, u, v, w):
+        return cuda_pack.pack_mac3_combined(u, v, w)
+
+    grids = (state.u, state.v, state.w)
+    rows = cfg.nx * cfg.ny * (cfg.nz - 1)
+    nbytes = 4 * sum(g.numel() for g in grids) + 4 * 64 * rows
+    row["pack_ms"] = cuda_ms(lambda: pack(cfg, *grids))
+    row["pack_kernel_ms"] = kernel_ms(lambda: pack(cfg, *grids), "pack_mac3_combined")
+    table = torch.empty((rows, 64), dtype=torch.float32, device=state.u.device)
+    row["pack_fill_ms"] = kernel_ms(table.zero_, "")
+    del table
+    row["pack_bound_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
+    row["pack_deterministic"] = deterministic(pack, (cfg, *grids), equal=bits)
+    against_dump(pack, (cfg, *grids), "pack", row, dump, against, tag, equal=bits)
 
 
 def walk_stats(cfg, start) -> dict:
@@ -175,6 +212,31 @@ def walk_stats(cfg, start) -> dict:
             "warp_step_efficiency": useful / (32 * steps)}
 
 
+PACK_TRIALS = ("8x128 cs", "8x128 plain stores", "4x128 cs", "16x128 cs", "8x64 cs", "4x64 cs")
+
+
+def pack_trials(cfg, state, row) -> None:
+    """The trial forms of csrc/pack.cu (tile rows x chunk, store kind), each
+    alone under torch.profiler and held bit for bit against the plain pack."""
+    from fluidsimulation_tpu_torch import _build
+    from fluidsimulation_tpu_torch.core import cuda_pack
+
+    trial = _build.Kernel("fst_pack_mac3_combined_trial", [_build.P] * 4 + [_build.I] * 4)
+    u, v, w = state.u, state.v, state.w
+    plain = cuda_pack.pack_mac3_combined_plain(u, v, w)
+    tab = torch.empty_like(plain)
+    for form, name in enumerate(PACK_TRIALS):
+        def run(form=form):
+            trial.launch(u.device, u.data_ptr(), v.data_ptr(), w.data_ptr(), tab.data_ptr(),
+                         cfg.nx, cfg.ny, cfg.nz, form)
+
+        tab.fill_(float("nan"))
+        run()
+        torch.cuda.synchronize()
+        row[f"pack_trial {name} bits"] = bits(tab, plain)
+        row[f"pack_trial {name} kernel_ms"] = kernel_ms(run, "pack_mac3_combined")
+
+
 def main(argv=None) -> int:
     import fluidsimulation_tpu_torch as ft
     from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep, flip
@@ -183,6 +245,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--dump", type=Path, default=None)
     parser.add_argument("--against", type=Path, default=None)
+    parser.add_argument("--pack-trials", action="store_true")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -242,6 +305,10 @@ def main(argv=None) -> int:
                 row[f"{key}_deterministic"] = deterministic(fn, fn_args)
             if key != "g2p":
                 against_dump(fn, fn_args, key, row, args.dump, args.against, tag)
+        if label in PACK_CONFIGS:
+            pack_times(cfg, state, row, args.dump, args.against, tag)
+            if args.pack_trials:
+                pack_trials(cfg, state, row)
         print(json.dumps(row), flush=True)
         del state, captured, phi, cpos
         torch.cuda.empty_cache()

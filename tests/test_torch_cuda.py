@@ -19,7 +19,9 @@ cell tiles) and with 3,000 particles in one cell (a halo walked in chunks).
 P2G, the pass and the FLIP gather launched twice give equal bits. A state
 with one NaN position steps twice on the card without a raise (the NaN
 rule). The combined-key pack (pure copies) must equal its plain version
-bit for bit at small odd shapes and at 64^3.
+bit for bit (int32 views) at shapes past every ragged edge of its tiles, at
+64^3 and at 128^3, also with NaN, +-inf and -0.0 next to its zero halo, and
+two launches must give the same bits.
 """
 
 import numpy as np
@@ -454,19 +456,51 @@ def test_wrappers_reject_bad_arguments(dev):
                           0.97)
 
 
-def _mac_grids(dev, shape, seed=0):
+# Bits that a copy must keep: quiet NaN, a negative NaN with a payload,
+# +inf, -inf and -0.0.
+SPECIAL_BITS = np.array([0x7FC00000, 0xFFC12345, 0x7F800000, 0xFF800000, 0x80000000],
+                        dtype=np.uint32)
+
+
+def _mac_grids(dev, shape, seed=0, special=False):
+    """Unit-normal MAC grids; with ``special``, the first and last layer
+    along every axis (the faces next to the pack's zero halo, and the z
+    ends) hold NaN, +-inf and -0.0."""
     nx, ny, nz = shape
     rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
-            for s in ((nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1))]
+    grids = [rng.standard_normal(s).astype(np.float32)
+             for s in ((nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1))]
+    for g in grids if special else ():
+        for axis in range(3):
+            for end in (0, -1):
+                face = [slice(None)] * 3
+                face[axis] = end
+                pick = rng.integers(0, len(SPECIAL_BITS), size=g[tuple(face)].shape)
+                g[tuple(face)] = SPECIAL_BITS[pick].view(np.float32)
+    return [torch.from_numpy(g).to(dev) for g in grids]
 
 
-@pytest.mark.parametrize("shape", [(12, 8, 16), (13, 9, 17), (64, 64, 64)])
-def test_pack_kernel_bit_exact(dev, shape):
-    grids = _mac_grids(dev, shape, seed=sum(shape))
+def _bits(t):
+    return t.view(torch.int32)
+
+
+# Shapes past every ragged edge of the kernel's tiles (8 rows along y, up to
+# 128 along z): one row; nz = 2; odd ny and nz; nz past one z chunk; the
+# demo's and the main path's grids.
+PACK_SHAPES = [(12, 8, 16), (1, 1, 2), (3, 5, 2), (13, 9, 17), (7, 13, 300), (64, 64, 64),
+               (128, 128, 128)]
+
+
+@pytest.mark.parametrize("special", [False, True], ids=["normal", "nan_inf_negzero"])
+@pytest.mark.parametrize("shape", PACK_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_pack_kernel_bit_exact(dev, shape, special):
+    """One launch; the plain pack's bits (int32 views, so NaN payloads and
+    -0.0 count); a second launch gives the same bits."""
+    grids = _mac_grids(dev, shape, seed=sum(shape), special=special)
     tab, n = _counted(cuda_pack, cuda_pack.pack_mac3_combined, *grids)
     assert n == 1
-    assert torch.equal(tab, cuda_pack.pack_mac3_combined_plain(*grids))
+    assert torch.equal(_bits(tab), _bits(cuda_pack.pack_mac3_combined_plain(*grids)))
+    assert torch.equal(_bits(tab), _bits(cuda_pack.pack_mac3_combined(*grids)))
 
 
 def test_pack_wrapper_rejects_bad_arguments(dev):

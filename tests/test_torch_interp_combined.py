@@ -45,6 +45,27 @@ def _grids(shape=(NX, NY, NZ), seed=0):
             for s in ((nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1))]
 
 
+# Bits that a copy must keep: quiet NaN, a negative NaN with a payload,
+# +inf, -inf and -0.0.
+SPECIAL_BITS = np.array([0x7FC00000, 0xFFC12345, 0x7F800000, 0xFF800000, 0x80000000],
+                        dtype=np.uint32)
+
+
+def _special_grids(shape, seed):
+    """Random grids whose first and last layer along every axis (the faces
+    next to the pack's zero halo, and the z ends) hold NaN, +-inf and -0.0."""
+    rng = np.random.default_rng(seed)
+    grids = _grids(shape, seed)
+    for g in grids:
+        for axis in range(3):
+            for end in (0, -1):
+                face = [slice(None)] * 3
+                face[axis] = end
+                pick = rng.integers(0, len(SPECIAL_BITS), size=g[tuple(face)].shape)
+                g[tuple(face)] = SPECIAL_BITS[pick].view(np.float32)
+    return grids
+
+
 def _port_pack(grids):
     return pack_mac3_combined(*map(torch.from_numpy, grids)).numpy()
 
@@ -67,6 +88,19 @@ def test_pack_bit_equal_to_xla_where_pallas_refuses():
     shape, as the XLA pack does."""
     grids = _grids((13, 9, 17), seed=4)
     np.testing.assert_array_equal(_port_pack(grids), np.asarray(jax_pack(*map(jnp.asarray, grids))))
+
+
+@pytest.mark.parametrize("shape", [(12, 8, 16), (13, 9, 17), (1, 1, 2)])
+def test_pack_keeps_special_bits_as_jax(shape):
+    """NaN payloads, +-inf and -0.0 next to the halo: the plain pack equals
+    JAX's XLA pack bit for bit (int32 views), and the halo and the 13 last
+    lanes are +0.0."""
+    grids = _special_grids(shape, seed=7 + sum(shape))
+    want = np.asarray(jax_pack(*map(jnp.asarray, grids)))
+    got = _port_pack(grids)
+    assert np.isnan(got).any() and np.isinf(got).any() and np.signbit(got[got == 0]).any()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert not got[:, len(cuda_pack.LANES):].view(np.int32).any()
 
 
 def test_kernel_lane_table_matches_plain_order():
