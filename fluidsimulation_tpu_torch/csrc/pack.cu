@@ -58,6 +58,10 @@ constexpr int kQuads = kRow / 4;  // float4 stores a row
 constexpr int kThreads = 256;
 constexpr int kRowsAPass = kThreads / kQuads;
 constexpr int kPlanes = 8;  // x-planes a y-slot: U i, i+1; V i-1..i+1; W i-1..i+1
+// Rows of a tile along y, and along z at most. Of the tiles measured on the
+// card (4, 8 and 16 along y; 64 and 128 along z) none was more than 5%
+// faster than 8 x 128 at 128^3 and 64^3 (PERF.md, section 6).
+constexpr int kTY = 8, kKC = 128;
 
 // Lane -> (grid: 0 U, 1 V, 2 W, 3 zero; dx, dy, dz), the JAX column order.
 struct Lane {
@@ -85,16 +89,19 @@ __constant__ Lane kLanes[kRow] = {
 };
 
 // Shared-memory layout of a tile, in floats: column stride zs, y-slot
-// stride ss, and the offset of the zero run after the ty + 2 slots.
+// stride ss, and the offset of the zero run after the kTY + 2 slots.
 struct Layout {
   int zs, ss, zero;
 };
 
-Layout layout(int kcmax, int ty) {
+constexpr Layout layout(int kcmax) {
   const int zs = kcmax + 2 + ((3 - (kcmax + 2)) & 31);  // zs = 3 (mod 32)
   const int ss = kPlanes * zs + 9;
-  return {zs, ss, (ty + 2) * ss};
+  return {zs, ss, (kTY + 2) * ss};
 }
+
+// The slots and the zero run fit the 48 KB a launch gets without opting in.
+static_assert(4 * (layout(kKC).zero + kKC) <= 48 * 1024, "tile's shared memory");
 
 __device__ __forceinline__ void copy_async(float* smem, const float* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -105,7 +112,6 @@ __device__ __forceinline__ void wait_copies() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <int TY, int KC, bool kStream>
 __global__ void __launch_bounds__(kThreads)
     pack_mac3_combined_kernel(const float* __restrict__ u, const float* __restrict__ v,
                               const float* __restrict__ w, float4* __restrict__ tab, int nx,
@@ -113,16 +119,16 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ float stage[];
   const int nzk = nz - 1;
   const unsigned int t = blockIdx.x / nkc;
-  const int k0 = static_cast<int>(blockIdx.x - t * nkc) * KC;
-  const int j0 = static_cast<int>(t % njt) * TY;
+  const int k0 = static_cast<int>(blockIdx.x - t * nkc) * kKC;
+  const int j0 = static_cast<int>(t % njt) * kTY;
   const int i = static_cast<int>(t / njt);
-  const int kc = min(KC, nzk - k0);
-  const int jv = min(TY, ny - j0);
+  const int kc = min(kKC, nzk - k0);
+  const int jv = min(kTY, ny - j0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   // 1. The windows: column c is y-slot c / 8 (y = j0 - 1 + slot), x-plane
   //    c % 8. U and V columns hold z = k0 .. k0+kc, W columns one more.
-  for (int c = warp; c < (TY + 2) * kPlanes; c += kThreads / 32) {
+  for (int c = warp; c < (kTY + 2) * kPlanes; c += kThreads / 32) {
     const int s = c >> 3, p = c & 7;
     const int y = j0 - 1 + s;
     float* dst = stage + s * lay.ss + p * lay.zs;
@@ -177,40 +183,9 @@ __global__ void __launch_bounds__(kThreads)
     const float* s3 = stage + off[3] + jj * step[3];
     float4* out = tab + (static_cast<long long>(i * ny + j0 + jj) * nzk + k0) * kQuads + q;
     for (int kk = r0; kk < kc; kk += kRowsAPass) {
-      const float4 val = make_float4(s0[kk], s1[kk], s2[kk], s3[kk]);
-      if constexpr (kStream) {
-        __stcs(out + kk * kQuads, val);
-      } else {
-        out[kk * kQuads] = val;
-      }
+      __stcs(out + kk * kQuads, make_float4(s0[kk], s1[kk], s2[kk], s3[kk]));
     }
   }
-}
-
-template <int TY, int KC, bool kStream>
-int launch(const float* u, const float* v, const float* w, float* tab, int nx, int ny, int nz,
-           void* stream) {
-  const int nzk = nz - 1;
-  const int kcmax = std::min(KC, nzk);
-  const Layout lay = layout(kcmax, TY);
-  const size_t smem = static_cast<size_t>(lay.zero + kcmax) * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(pack_mac3_combined_kernel<TY, KC, kStream>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned int nkc = (nzk + KC - 1) / KC, njt = (ny + TY - 1) / TY;
-  const long long blocks = static_cast<long long>(nx) * njt * nkc;
-  pack_mac3_combined_kernel<TY, KC, kStream>
-      <<<static_cast<unsigned int>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          u, v, w, reinterpret_cast<float4*>(tab), nx, ny, nz, nkc, njt, lay);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int check_args(int nx, int ny, int nz) {
-  if (nx < 1 || ny < 1 || nz < 2) return static_cast<int>(cudaErrorInvalidValue);
-  const long long rows = static_cast<long long>(nx) * ny * (nz - 1);
-  if (rows > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  return 0;
 }
 
 }  // namespace
@@ -219,23 +194,17 @@ int check_args(int nx, int ny, int nz) {
 extern "C" int fst_pack_mac3_combined(const float* u, const float* v,
                                       const float* w, float* tab, int nx,
                                       int ny, int nz, void* stream) {
-  if (const int err = check_args(nx, ny, nz)) return err;
-  return launch<8, 128, true>(u, v, w, tab, nx, ny, nz, stream);
-}
-
-// Trial forms (tile rows kTY, chunk kKC, streaming stores or not), for
-// utils/kernel_times.py --pack-trials: 0 is the form above.
-extern "C" int fst_pack_mac3_combined_trial(const float* u, const float* v, const float* w,
-                                            float* tab, int nx, int ny, int nz, int form,
-                                            void* stream) {
-  if (const int err = check_args(nx, ny, nz)) return err;
-  switch (form) {
-    case 0: return launch<8, 128, true>(u, v, w, tab, nx, ny, nz, stream);
-    case 1: return launch<8, 128, false>(u, v, w, tab, nx, ny, nz, stream);
-    case 2: return launch<4, 128, true>(u, v, w, tab, nx, ny, nz, stream);
-    case 3: return launch<16, 128, true>(u, v, w, tab, nx, ny, nz, stream);
-    case 4: return launch<8, 64, true>(u, v, w, tab, nx, ny, nz, stream);
-    case 5: return launch<4, 64, true>(u, v, w, tab, nx, ny, nz, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (nx < 1 || ny < 1 || nz < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(nx) * ny * (nz - 1);
+  if (rows > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int nzk = nz - 1;
+  const int kcmax = std::min(kKC, nzk);
+  const Layout lay = layout(kcmax);
+  const size_t smem = static_cast<size_t>(lay.zero + kcmax) * sizeof(float);
+  const unsigned int nkc = (nzk + kKC - 1) / kKC, njt = (ny + kTY - 1) / kTY;
+  const long long blocks = static_cast<long long>(nx) * njt * nkc;
+  pack_mac3_combined_kernel<<<static_cast<unsigned int>(blocks), kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      u, v, w, reinterpret_cast<float4*>(tab), nx, ny, nz, nkc, njt, lay);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -212,31 +212,6 @@ def walk_stats(cfg, start) -> dict:
             "warp_step_efficiency": useful / (32 * steps)}
 
 
-PACK_TRIALS = ("8x128 cs", "8x128 plain stores", "4x128 cs", "16x128 cs", "8x64 cs", "4x64 cs")
-
-
-def pack_trials(cfg, state, row) -> None:
-    """The trial forms of csrc/pack.cu (tile rows x chunk, store kind), each
-    alone under torch.profiler and held bit for bit against the plain pack."""
-    from fluidsimulation_tpu_torch import _build
-    from fluidsimulation_tpu_torch.core import cuda_pack
-
-    trial = _build.Kernel("fst_pack_mac3_combined_trial", [_build.P] * 4 + [_build.I] * 4)
-    u, v, w = state.u, state.v, state.w
-    plain = cuda_pack.pack_mac3_combined_plain(u, v, w)
-    tab = torch.empty_like(plain)
-    for form, name in enumerate(PACK_TRIALS):
-        def run(form=form):
-            trial.launch(u.device, u.data_ptr(), v.data_ptr(), w.data_ptr(), tab.data_ptr(),
-                         cfg.nx, cfg.ny, cfg.nz, form)
-
-        tab.fill_(float("nan"))
-        run()
-        torch.cuda.synchronize()
-        row[f"pack_trial {name} bits"] = bits(tab, plain)
-        row[f"pack_trial {name} kernel_ms"] = kernel_ms(run, "pack_mac3_combined")
-
-
 def main(argv=None) -> int:
     import fluidsimulation_tpu_torch as ft
     from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep, flip
@@ -245,7 +220,6 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--dump", type=Path, default=None)
     parser.add_argument("--against", type=Path, default=None)
-    parser.add_argument("--pack-trials", action="store_true")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -307,8 +281,6 @@ def main(argv=None) -> int:
                 against_dump(fn, fn_args, key, row, args.dump, args.against, tag)
         if label in PACK_CONFIGS:
             pack_times(cfg, state, row, args.dump, args.against, tag)
-            if args.pack_trials:
-                pack_trials(cfg, state, row)
         print(json.dumps(row), flush=True)
         del state, captured, phi, cpos
         torch.cuda.empty_cache()
