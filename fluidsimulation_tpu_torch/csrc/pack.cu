@@ -112,7 +112,6 @@ __device__ __forceinline__ void wait_copies() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <int kMode>  // diagnostic: 0 the pack, 1 stores only, 2 staging only
 __global__ void __launch_bounds__(kThreads)
     pack_mac3_combined_kernel(const float* __restrict__ u, const float* __restrict__ v,
                               const float* __restrict__ w, float4* __restrict__ tab, int nx,
@@ -129,7 +128,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // 1. The windows: column c is y-slot c / 8 (y = j0 - 1 + slot), x-plane
   //    c % 8. U and V columns hold z = k0 .. k0+kc, W columns one more.
-  for (int c = warp; kMode != 1 && c < (kTY + 2) * kPlanes; c += kThreads / 32) {
+  for (int c = warp; c < (kTY + 2) * kPlanes; c += kThreads / 32) {
     const int s = c >> 3, p = c & 7;
     const int y = j0 - 1 + s;
     float* dst = stage + s * lay.ss + p * lay.zs;
@@ -177,7 +176,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // 3. The rows: y-slot run jj, then a pass of 16 rows along k at a time.
   const int r0 = threadIdx.x / kQuads;
-  for (int jj = 0; kMode != 2 && jj < jv; ++jj) {
+  for (int jj = 0; jj < jv; ++jj) {
     const float* s0 = stage + off[0] + jj * step[0];
     const float* s1 = stage + off[1] + jj * step[1];
     const float* s2 = stage + off[2] + jj * step[2];
@@ -204,30 +203,8 @@ extern "C" int fst_pack_mac3_combined(const float* u, const float* v,
   const size_t smem = static_cast<size_t>(lay.zero + kcmax) * sizeof(float);
   const unsigned int nkc = (nzk + kKC - 1) / kKC, njt = (ny + kTY - 1) / kTY;
   const long long blocks = static_cast<long long>(nx) * njt * nkc;
-  pack_mac3_combined_kernel<0><<<static_cast<unsigned int>(blocks), kThreads, smem,
+  pack_mac3_combined_kernel<<<static_cast<unsigned int>(blocks), kThreads, smem,
                               static_cast<cudaStream_t>(stream)>>>(
       u, v, w, reinterpret_cast<float4*>(tab), nx, ny, nz, nkc, njt, lay);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Diagnostic forms for utils/kernel_times.py --pack-diag: 1 the stores
-// alone (no staging), 2 the staging alone (no stores).
-extern "C" int fst_pack_mac3_combined_diag(const float* u, const float* v, const float* w,
-                                           float* tab, int nx, int ny, int nz, int mode,
-                                           void* stream) {
-  const int nzk = nz - 1;
-  const int kcmax = std::min(kKC, nzk);
-  const Layout lay = layout(kcmax);
-  const size_t smem = static_cast<size_t>(lay.zero + kcmax) * sizeof(float);
-  const unsigned int nkc = (nzk + kKC - 1) / kKC, njt = (ny + kTY - 1) / kTY;
-  const unsigned int blocks = static_cast<unsigned int>(static_cast<long long>(nx) * njt * nkc);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == 1) {
-    pack_mac3_combined_kernel<1><<<blocks, kThreads, smem, st>>>(
-        u, v, w, reinterpret_cast<float4*>(tab), nx, ny, nz, nkc, njt, lay);
-  } else {
-    pack_mac3_combined_kernel<2><<<blocks, kThreads, smem, st>>>(
-        u, v, w, reinterpret_cast<float4*>(tab), nx, ny, nz, nkc, njt, lay);
-  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -212,21 +212,6 @@ def walk_stats(cfg, start) -> dict:
             "warp_step_efficiency": useful / (32 * steps)}
 
 
-def pack_diag(cfg, state, row) -> None:
-    """Diagnostic forms of csrc/pack.cu, each alone under torch.profiler:
-    the stores without the staging, the staging without the stores."""
-    from fluidsimulation_tpu_torch import _build
-
-    diag = _build.Kernel("fst_pack_mac3_combined_diag", [_build.P] * 4 + [_build.I] * 4)
-    u, v, w = state.u, state.v, state.w
-    tab = torch.empty((cfg.nx * cfg.ny * (cfg.nz - 1), 64), dtype=torch.float32, device=u.device)
-    for mode, name in ((1, "stores only"), (2, "staging only")):
-        row[f"pack_diag {name} kernel_ms"] = kernel_ms(
-            lambda mode=mode: diag.launch(u.device, u.data_ptr(), v.data_ptr(), w.data_ptr(),
-                                          tab.data_ptr(), cfg.nx, cfg.ny, cfg.nz, mode),
-            "pack_mac3_combined")
-
-
 def main(argv=None) -> int:
     import fluidsimulation_tpu_torch as ft
     from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep, flip
@@ -235,7 +220,6 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--dump", type=Path, default=None)
     parser.add_argument("--against", type=Path, default=None)
-    parser.add_argument("--pack-diag", action="store_true")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -297,8 +281,6 @@ def main(argv=None) -> int:
                 against_dump(fn, fn_args, key, row, args.dump, args.against, tag)
         if label in PACK_CONFIGS:
             pack_times(cfg, state, row, args.dump, args.against, tag)
-            if args.pack_diag:
-                pack_diag(cfg, state, row)
         print(json.dumps(row), flush=True)
         del state, captured, phi, cpos
         torch.cuda.empty_cache()
