@@ -18,9 +18,8 @@ two steps left out) comes with them. On the final grids of the first two
 configurations the combined-key pack (``core/cuda_pack.py``, no step calls
 it) is timed by events (``pack_ms``) and alone under torch.profiler
 (``pack_kernel_ms``), beside a zero-fill of a table of the same bytes, the
-card's store-rate ceiling (``pack_fill_ms``), and its bound
-(``pack_bound_ms``); two launches must give the same bits
-(``pack_deterministic``).
+card's store-rate ceiling (``pack_fill_ms``); two launches must give the
+same bits (``pack_deterministic``).
 
 Run on the card from the root of a checkout:
 
@@ -57,7 +56,6 @@ CONFIGS = (  # (label, grid, ppc, dt, steps)
     ("128^3 ppc 2", 128, 2, 1.0 / 120.0, 10),
 )
 PACK_CONFIGS = ("128^3 ppc 1", "64^3 ppc 2")  # the grids the pack is timed on
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at 700 W
 REPS = 20
 SITES = (
     ("ops.levelset", "neighborhood_pass", "seed"),
@@ -166,22 +164,19 @@ def deterministic(fn, args, equal=same) -> bool:
 
 def pack_times(cfg, state, row, dump: Path | None, against: Path | None, tag: str) -> None:
     """The combined-key pack on the state's grids: by events, alone under
-    torch.profiler, the zero-fill of a table of the same bytes, the bound,
-    two launches bit-equal, and ``--dump``/``--against``."""
+    torch.profiler, the zero-fill of a table of the same bytes, two
+    launches bit-equal, and ``--dump``/``--against``."""
     from fluidsimulation_tpu_torch.core import cuda_pack
 
     def pack(cfg, u, v, w):
         return cuda_pack.pack_mac3_combined(u, v, w)
 
     grids = (state.u, state.v, state.w)
-    rows = cfg.nx * cfg.ny * (cfg.nz - 1)
-    nbytes = 4 * sum(g.numel() for g in grids) + 4 * 64 * rows
     row["pack_ms"] = cuda_ms(lambda: pack(cfg, *grids))
     row["pack_kernel_ms"] = kernel_ms(lambda: pack(cfg, *grids), "pack_mac3_combined")
-    table = torch.empty((rows, 64), dtype=torch.float32, device=state.u.device)
+    table = torch.empty((cfg.nx * cfg.ny * (cfg.nz - 1), cuda_pack.ROW), device=state.u.device)
     row["pack_fill_ms"] = kernel_ms(table.zero_, "")
     del table
-    row["pack_bound_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
     row["pack_deterministic"] = deterministic(pack, (cfg, *grids), equal=bits)
     against_dump(pack, (cfg, *grids), "pack", row, dump, against, tag, equal=bits)
 

@@ -93,8 +93,8 @@ def test_pack_bit_equal_to_xla_where_pallas_refuses():
 @pytest.mark.parametrize("shape", [(12, 8, 16), (13, 9, 17), (1, 1, 2)])
 def test_pack_keeps_special_bits_as_jax(shape):
     """NaN payloads, +-inf and -0.0 next to the halo: the plain pack equals
-    JAX's XLA pack bit for bit (int32 views), and the halo and the 13 last
-    lanes are +0.0."""
+    JAX's XLA pack bit for bit (int32 views, so its +0.0 halo too), and the
+    13 last lanes are +0.0."""
     grids = _special_grids(shape, seed=7 + sum(shape))
     want = np.asarray(jax_pack(*map(jnp.asarray, grids)))
     got = _port_pack(grids)
