@@ -7,7 +7,8 @@ Run from the repository root with no arguments:
 
 It builds the six hand-written CUDA kernels from csrc/, compares each with
 its plain PyTorch version on the card, and drives three paths of the port,
-each with the launch counts set to 0 just before it and read just after:
+each with the launch counts set to 0 just before it and read just after,
+then renders 800x600 frames of the level sets of the first two:
 
   * the 128^3 dam break (1,000,188 particles, ppc 1, dt = 1/60) through
     ``step``, 20 steps;
@@ -50,7 +51,17 @@ Phases, each printing before the next:
      the interpolation vs the pointwise one, RK3 vs advect_rk3_cached; the
      pack's device time under torch.profiler (the report's ms) and its time
      by events, beside a zero-fill of a table of the same bytes
-  8  {"kernels": [...]} and then {"ok": true, "device": {...}}
+  R  the renderer (render/raytrace.py, plain PyTorch, no hand kernel): a
+     32^3 state stepped 3 times on the card, its 160x120 frame on the card
+     vs the same phi's frame on the CPU (quirk pixels excluded); 800x600
+     frames of the final phi of phase 3 (band_rows=100) and of phase 5
+     (band_rows=64): finite, the shown frame's std > 0.01, 3 frames after
+     1 warm-up timed by CUDA events, host syncs a frame, peak device
+     memory a frame, the card's busy time a frame, sim_render_fps; at
+     128^3 also bounces 1 and 0 and overstep 1.5 once, and at both an
+     untiled frame (band_rows=0) once; then the demo at 64^3 with
+     --render-every writing PPM frames
+  8  {"kernels": [...], "render": {...}} and then {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -63,6 +74,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import torch
@@ -80,6 +92,13 @@ PHYS_N = 128
 PHYS_PARTICLES = 8_001_504
 PHYS_DT = 1.0 / 120.0
 PHYS_STEPS = 10
+WIDTH, HEIGHT = 800, 600  # bench.py's frame
+FRAMES = 3  # timed frames after one warm-up
+SMALL_FRAME = (160, 120)
+# Frames of two implementations (quirk pixels excluded): within FRAME_ATOL,
+# but for at most FRAME_FRAC of the values, and those within FRAME_MAX (a
+# march exit one step apart at a threshold).
+FRAME_ATOL, FRAME_FRAC, FRAME_MAX = 2e-4, 1e-3, 0.5
 FIELDS = ("pos", "vel", "u", "v", "w", "phi")
 
 # H100 SXM data-sheet peaks at 700 W: device memory rate, and float32
@@ -651,7 +670,7 @@ def run_demo(table, results, card):
     sweep_sor_details(captured, f"{cfg.nx}^3 ppc 2", card)
     combined_launches = run_combined(f"{cfg.nx}^3 ppc 2", cfg, state, seen["dt"], results,
                                      card, report=False)
-    return launches, step_ms, combined_launches
+    return launches, step_ms, combined_launches, state.phi
 
 
 def run_physical(table, results, card):
@@ -683,6 +702,189 @@ def run_physical(table, results, card):
                   f"{PHYS_N}^3 ppc 2", results, timed=("seed", "sweep", "p2g2", "sor", "g2p"))
     sweep_sor_details(captured, f"{PHYS_N}^3 ppc 2", card)
     return launches, step_ms, peak
+
+
+def count_syncs(fn):
+    """fn() once, under torch.cuda.set_sync_debug_mode("warn"): returns its
+    result, the synchronizing calls torch reported and the renderer's own
+    host reads (render/raytrace.py::_any) among them."""
+    from fluidsimulation_tpu_torch.utils.profiling import hooked
+
+    reads = [0]
+
+    def counted(label, orig, args):
+        reads[0] += 1
+        return orig(*args)
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught, \
+            hooked([("render.raytrace", "_any", "any")], counted):
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    if syncs < reads[0]:
+        raise AssertionError(f"render: torch reported {syncs} synchronizing calls, fewer than the "
+                             f"renderer's {reads[0]} host reads")
+    return out, syncs, reads[0]
+
+
+def check_frame(label: str, img, shape) -> float:
+    """The frame has the shape, is finite and is not flat as shown: the std
+    of its values clipped to [0, 1], as write_ppm shows them, is > 0.01
+    (the reference's garbage pixels, up to ~1e35, would set an unclipped
+    std). Returns that std."""
+    if tuple(img.shape) != shape:
+        raise AssertionError(f"{label}: frame shape {tuple(img.shape)}, expected {shape}")
+    if not bool(img.isfinite().all()):
+        raise AssertionError(f"{label}: non-finite values in the frame")
+    std = float(img.clamp(0.0, 1.0).double().std())
+    if not std > 0.01:
+        raise AssertionError(f"{label}: the shown frame's std {std} <= 0.01")
+    return std
+
+
+def time_frames(label, phi, band_rows, step_ms, card, extra=()):
+    """FRAMES 800x600 frames of phi after one warm-up, CUDA-event timed;
+    the host syncs and the peak device memory of one more frame; then each
+    of ``extra`` (name, render_frame keywords) once. Returns the report."""
+    from fluidsimulation_tpu_torch.render.camera import OrbitCamera
+    from fluidsimulation_tpu_torch.render.raytrace import render_frame
+
+    cam = OrbitCamera().frame(WIDTH, HEIGHT)
+
+    def frame(**kw):
+        return render_frame(phi, *cam, width=WIDTH, height=HEIGHT, **{"band_rows": band_rows, **kw})
+
+    def timed(**kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        img = frame(**kw)
+        end.record()
+        torch.cuda.synchronize()
+        return img, start.elapsed_time(end)
+
+    first = frame()
+    torch.cuda.synchronize()
+    std = check_frame(label, first, (HEIGHT, WIDTH, 3))
+    times = []
+    for _ in range(FRAMES):
+        img, ms = timed()
+        if not torch.equal(img, first):
+            raise AssertionError(f"{label}: two frames of the same phi differ")
+        times.append(ms)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    img, syncs, reads = count_syncs(frame)
+    peak = torch.cuda.max_memory_allocated() - base
+    if not torch.equal(img, first):
+        raise AssertionError(f"{label}: the frame under sync counting differs")
+    busy = device_ms(frame, 1)
+    ms = statistics.median(times)
+    fps = 1e3 / (step_ms + ms)
+    say(f"phase R [{label}]: {WIDTH}x{HEIGHT} band_rows={band_rows}: finite, shown std {std!r}; "
+        f"median frame {ms!r} ms of {times!r} (CUDA events, "
+        f"{FRAMES} after 1 warm-up); {syncs} host syncs a frame ({reads} of them the marches' "
+        f"reads of 'any lane left'); peak device memory of a frame {peak} B above the {base} B "
+        f"resident; the card busy {busy!r} ms of a frame (torch.profiler), {busy / ms!r} of the "
+        f"median; sim_render_fps = 1 / (step {step_ms!r} ms + frame {ms!r} ms) = {fps!r} on {card}")
+    out = {"ms": ms, "frame_ms": times, "host_syncs": syncs, "march_reads": reads,
+           "peak_bytes": peak, "device_ms": busy, "step_ms": step_ms, "sim_render_fps": fps}
+    for name, kw in extra:
+        img, ms = timed(**kw)
+        std = check_frame(f"{label} {name}", img, (HEIGHT, WIDTH, 3))
+        out[f"{name}_ms"] = ms
+        say(f"phase R [{label}] {name}: one frame {ms!r} ms (CUDA events), finite, shown std "
+            f"{std!r} on {card}")
+    return out
+
+
+def card_vs_cpu_frame(dev, card) -> dict:
+    """A 32^3 state stepped 3 times on the card; its frame on the card vs
+    the same phi's frame on the CPU, both by the port."""
+    import fluidsimulation_tpu_torch as ft
+    from fluidsimulation_tpu_torch.render.camera import OrbitCamera
+    from fluidsimulation_tpu_torch.render.raytrace import quirk_pixels, render_frame
+
+    cfg = ft.SimConfig(nx=SMALL_N, ny=SMALL_N, nz=SMALL_N, cells_per_meter=float(SMALL_N),
+                       particles_per_cell_axis=1)
+    state = ft.init_state(cfg, dev)
+    for _ in range(3):
+        state = ft.step(state, DT, cfg)
+    w, h = SMALL_FRAME
+    cam = OrbitCamera().frame(w, h)
+    got = render_frame(state.phi, *cam, width=w, height=h).cpu()
+    want = render_frame(state.phi.cpu(), *cam, width=w, height=h)
+    check_frame("phase R card frame", got, (h, w, 3))
+    keep = ~quirk_pixels(*cam, w, h)
+    d = (got - want).abs()[keep]
+    err, n_out = float(d.max()), int((d > FRAME_ATOL).sum())
+    n_exact = int((got == want).all(-1).sum())
+    say(f"phase R: {SMALL_N}^3 state after 3 card steps, {w}x{h} frame, card vs CPU: "
+        f"{int((~keep).sum())} quirk pixels excluded; of {d.numel()} values {n_out} differ by "
+        f"more than {FRAME_ATOL} (limit {FRAME_FRAC * d.numel()!r}), largest difference {err!r} "
+        f"(limit {FRAME_MAX}); {n_exact} of {w * h} pixels bit-equal on {card}")
+    if n_out > FRAME_FRAC * d.numel() or err > FRAME_MAX:
+        raise AssertionError(f"phase R: card and CPU frames differ past the bound ({n_out} values "
+                             f"past {FRAME_ATOL}, largest {err})")
+    return {"max_abs_err": err, "values_past_atol": n_out, "values": d.numel(),
+            "quirk_pixels": int((~keep).sum()), "pixels_bit_equal": n_exact}
+
+
+def demo_with_frames(card) -> dict:
+    """app.demo.main at 64^3 with --render-every 2 for 4 steps: two PPM
+    frames of 800x600, every step through the launch check."""
+    from fluidsimulation_tpu_torch.app import demo
+    from fluidsimulation_tpu_torch.utils.profiling import hooked
+
+    steps, every = 4, 2
+    check = LaunchCheck("phase R (demo with frames)")
+
+    def counted(label, orig, args):
+        return check.step(lambda: orig(*args))
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as out_dir:
+        t0 = time.perf_counter()
+        with hooked([("app.demo", "step", "step")], counted):
+            rc = demo.main(["--device", "cuda", "--steps", str(steps), "--render-every",
+                            str(every), "--out", out_dir])
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"demo with frames: main returned {rc}")
+        check.totals()
+        frames = sorted(Path(out_dir).glob("frame_*.ppm"))
+        names = [f.name for f in frames]
+        want = [f"frame_{i:05d}.ppm" for i in range(0, steps, every)]
+        if names != want:
+            raise AssertionError(f"demo with frames: wrote {names}, expected {want}")
+        header = f"P6\n{WIDTH} {HEIGHT}\n255\n".encode()
+        for f in frames:
+            data = f.read_bytes()
+            if not data.startswith(header) or len(data) != len(header) + WIDTH * HEIGHT * 3:
+                raise AssertionError(f"demo with frames: {f.name} has a bad header or size")
+    say(f"phase R: demo 64^3 ppc 2, {steps} steps with --render-every {every}: {len(frames)} PPM "
+        f"frames of {WIDTH}x{HEIGHT}, headers and sizes right; {wall:.1f} s in all on {card}")
+    return {"frames": len(frames), "steps": steps, "seconds": wall}
+
+
+def render_phase(dev, main_phi, main_step_ms, demo_phi, demo_step_ms, card) -> dict:
+    """Phase R: the renderer on the card."""
+    out = {"card_vs_cpu_32^3": card_vs_cpu_frame(dev, card)}
+    out["128^3 ppc 1"] = time_frames(
+        f"{MAIN_N}^3 ppc 1", main_phi, 100, main_step_ms, card,
+        extra=(("bounces1", {"bounces": 1}), ("bounces0", {"bounces": 0}),
+               ("overstep1.5", {"overstep": 1.5}), ("untiled", {"band_rows": 0})))
+    out["demo 64^3 ppc 2"] = time_frames("demo 64^3 ppc 2", demo_phi, 64, demo_step_ms, card,
+                                         extra=(("untiled", {"band_rows": 0}),))
+    out["demo with frames"] = demo_with_frames(card)
+    return out
 
 
 def main() -> int:
@@ -763,6 +965,7 @@ def main() -> int:
     del captured_big
     combined_launches = run_combined(f"{MAIN_N}^3 ppc 1", cfg, state, DT, results, card,
                                      report=True)
+    main_phi = state.phi
     del state
     torch.cuda.empty_cache()
 
@@ -779,8 +982,10 @@ def main() -> int:
     nan_phase(small, dev)
 
     # Phase 5: the demo entry point; phase 6: the physical configuration.
-    demo_launches, demo_ms, demo_combined_launches = run_demo(table, results, card)
+    demo_launches, demo_ms, demo_combined_launches, demo_phi = run_demo(table, results, card)
     phys_launches, phys_ms, phys_peak = run_physical(table, results, card)
+    torch.cuda.empty_cache()
+    render = render_phase(dev, main_phi, step_ms, demo_phi, demo_ms, card)
 
     # Phase 8.
     symbol = {key: k["module"].KERNEL.symbol for key, k in table.items()}
@@ -811,6 +1016,7 @@ def main() -> int:
                      "combined 128^3 ppc 1": combined_launches,
                      "combined 64^3 ppc 2": demo_combined_launches},
         "peak_bytes_128^3_ppc2": phys_peak,
+        "render": render,
     }))
     say(json.dumps({
         "ok": True,

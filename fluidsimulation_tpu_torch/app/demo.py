@@ -1,25 +1,31 @@
-"""CLI demo: the dam break of FluidSimDemo (FluidSimDemo.cpp), without
-rendering. Port of the 3D FLIP loop of fluidsimulation_tpu/app/demo.py.
+"""CLI demo: the dam break of FluidSimDemo (FluidSimDemo.cpp) with its
+raytraced frames. Port of the 3D FLIP loop of fluidsimulation_tpu/app/demo.py.
 
-Runs the simulation on the card by default (``--device cuda``); pass
-``--device cpu`` to run the plain PyTorch versions of the kernels on the
-CPU. Without a card and without ``--device cpu`` it raises. The
-reference's interactive controls (FluidSimDemo.cpp:7-13) come as one
+Runs the simulation and the renderer on the card by default (``--device
+cuda``); pass ``--device cpu`` to run the plain PyTorch versions of the
+kernels on the CPU. Without a card and without ``--device cpu`` it raises.
+The reference's interactive controls (FluidSimDemo.cpp:7-13) come as one
 command per line on stdin, read when stdin is a terminal or when
 FST_DEMO_STDIN is set:
 
   +     double simulation speed  (GPFluidSim::IncreaseSpeed, clamp <= 1)
   -     halve simulation speed   (GPFluidSim::DecreaseSpeed)
+  0     reset the camera view
   r     reset the simulation
+  o X Y orbit the camera by (X, Y) "pixels" (mouse-drag equivalent)
+  z DY  zoom (right-drag equivalent)
   q     quit
 
-Every 10 steps it prints the step time and the Meter summary and checks
-the state; an anomaly resets the simulation, as 'r' does. With
---save-state the final state goes to OUT/final_state.npz in the JAX
-package's checkpoint format.
+A malformed command is ignored. With --render-every K, every K-th step
+renders a frame of the level set (render/raytrace.py::render_frame) to
+OUT/frame_NNNNN.ppm, a binary PPM. Every 10 steps it prints the step time
+and the Meter summary and checks the state; an anomaly resets the
+simulation, as 'r' does. With --save-state the final state goes to
+OUT/final_state.npz in the JAX package's checkpoint format.
 
 Usage:
-  python -m fluidsimulation_tpu_torch --grid 64 --steps 60 --out out/
+  python -m fluidsimulation_tpu_torch --grid 64 --steps 120 \
+      --render-every 2 --width 800 --height 600 --out out/
 """
 
 from __future__ import annotations
@@ -35,9 +41,20 @@ import torch
 
 from ..core.config import SimConfig
 from ..core.state import init_state
+from ..render.camera import OrbitCamera
+from ..render.raytrace import render_frame
 from ..solver.step3d import clamp_dt, step
 from ..utils.checkpoint import save_state
 from ..utils.metrics import Meter, check_state
+
+
+def write_ppm(path: str, img: np.ndarray) -> None:
+    """img: (H, W, 3) float in [0, inf) -> 8-bit binary PPM."""
+    arr = (np.clip(np.asarray(img), 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    h, w, _ = arr.shape
+    with open(path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (w, h))
+        f.write(arr.tobytes())
 
 
 def _poll_stdin() -> str | None:
@@ -62,6 +79,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--save-state", action="store_true")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device to run on (default cuda; cpu runs the plain versions)")
+    ap.add_argument("--render-every", type=int, default=0,
+                    help="render every k steps (0 = never)")
+    ap.add_argument("--width", type=int, default=800)
+    ap.add_argument("--height", type=int, default=600)
+    ap.add_argument("--render-scale", type=int, default=1,
+                    help="raytrace at 1/k resolution and nearest-upscale (k=1: the exact image)")
+    ap.add_argument("--bounces", type=int, default=2, choices=(0, 1, 2),
+                    help="water-bounce depth: 2 = the reference's traceWater2; 1/0 its lower tiers")
+    ap.add_argument("--sphere-trace", action=argparse.BooleanOptionalAction, default=True,
+                    help="sphere-trace skip of the inside water march (deepened texture, "
+                    "render/interior.py); --no-sphere-trace runs the plain 1-cell march")
+    ap.add_argument("--overstep", type=float, default=0.0,
+                    help="omega > 1: enhanced sphere tracing of the outside water march; "
+                    "0 or 1 = the exact reference march")
+    ap.add_argument("--temporal", action=argparse.BooleanOptionalAction, default=False,
+                    help="seed each frame's water marches from the previous frame's hit ts "
+                    "while the camera stays still; cleared on camera moves and resets")
     return ap.parse_args(argv)
 
 
@@ -81,31 +115,51 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     print(f"grid {cfg.nx}^3, {cfg.num_particles} particles on {dev}")
     state = init_state(cfg, dev)
+    cam = OrbitCamera()
     rate = args.rate
     meter = Meter(cfg.num_particles)
+    # Temporal seed: the previous frame's march ts and the camera and
+    # frame they are valid for (cleared on camera moves and resets).
+    seed = {"t": None, "sig": None}
 
     for i in range(args.steps):
         cmd = _poll_stdin()
-        if cmd == "+":
-            rate = min(rate * 2.0, 1.0)
-        elif cmd == "-":
-            # Clamp at the smallest denormal like DecreaseSpeed
-            # (Simulation.cpp:304-312).
-            rate = max(rate / 2.0, float(np.finfo(np.float32).smallest_subnormal))
-        elif cmd == "r":
-            state = init_state(cfg, dev)
-        elif cmd == "q":
-            break
-        elif cmd:
-            print(f"ignoring unknown command: {cmd!r}")
+        try:
+            if cmd == "+":
+                rate = min(rate * 2.0, 1.0)
+            elif cmd == "-":
+                # Clamp at the smallest denormal like DecreaseSpeed
+                # (Simulation.cpp:304-312).
+                rate = max(rate / 2.0, float(np.finfo(np.float32).smallest_subnormal))
+            elif cmd == "0":
+                cam.reset()
+            elif cmd == "r":
+                state = init_state(cfg, dev)
+                seed["t"] = None  # the water jumps discontinuously
+            elif cmd == "q":
+                break
+            elif cmd and cmd.startswith("o "):
+                _, dx, dy = cmd.split()
+                cam.orbit(float(dx), float(dy))
+            elif cmd and cmd.startswith("z "):
+                cam.zoom(float(cmd.split()[1]), args.height)
+            elif cmd:
+                print(f"ignoring unknown command: {cmd!r}")
+        except (ValueError, IndexError):
+            print(f"ignoring malformed command: {cmd!r}")
 
         dt = clamp_dt(cfg, args.dt, rate)
         t0 = time.perf_counter()
         state = step(state, dt, cfg)
+        frame = None
+        if args.render_every and i % args.render_every == 0:
+            frame = _draw(args, cam, state.phi, seed)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         meter.tick()
         step_ms = 1000 * (time.perf_counter() - t0)
+        if frame is not None:
+            write_ppm(os.path.join(args.out, f"frame_{i:05d}.ppm"), frame)
 
         if i % 10 == 0:
             print(f"step {i}: {step_ms:.1f} ms  ({meter.summary()})")
@@ -117,6 +171,30 @@ def main(argv=None) -> int:
         save_state(os.path.join(args.out, "final_state.npz"), state, cfg)
     print(meter.summary())
     return 0
+
+
+def _draw(args, cam, phi, seed) -> np.ndarray:
+    """One frame (FluidSimDemo::DrawScene) as an (height, width, 3) array.
+    --render-scale k > 1 traces at 1/k of the size, rounded up, and
+    nearest-upscales, cropped to the size asked for."""
+    k = max(1, args.render_scale)
+    w, h = -(-args.width // k), -(-args.height // k)
+    co, right, up, fwd = cam.frame(w, h)
+    temporal = args.temporal and args.bounces >= 1
+    sig = (cam.cam_phi, cam.cam_theta, cam.fov, cam.radius, w, h, args.bounces)
+    t_in = seed["t"] if (temporal and seed["sig"] == sig) else None
+    # The JAX demo's tile heights: 100 rows at 128^3 and up, else 64.
+    out = render_frame(phi, co, right, up, fwd, width=w, height=h,
+                       band_rows=100 if max(phi.shape) >= 128 else 64,
+                       bounces=args.bounces, sphere_trace=args.sphere_trace,
+                       overstep=args.overstep, t_seed=t_in, return_t=temporal)
+    if temporal:
+        out, seed["t"] = out
+        seed["sig"] = sig
+    img = out.cpu().numpy()
+    if k > 1:
+        img = np.repeat(np.repeat(img, k, axis=0), k, axis=1)[: args.height, : args.width]
+    return img
 
 
 if __name__ == "__main__":

@@ -27,6 +27,7 @@ name, the hand kernels among them) a step.
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib
 import statistics
 import time
@@ -77,15 +78,16 @@ class _Clock:
 def hooked(sites, around):
     """While open, a call to any ``(module, attr, label)`` of sites (module
     named under the package) runs ``around(label, orig, args)`` in place of
-    ``orig(*args)``, where the step's code looks the function up. The
-    originals come back on exit."""
+    ``orig(*args)``, where the step's code looks the function up (keyword
+    arguments of the call are bound into ``orig``). The originals come
+    back on exit."""
     saved = []
     for mod_name, attr, label in sites:
         module = importlib.import_module(f"fluidsimulation_tpu_torch.{mod_name}")
         orig = getattr(module, attr)
 
-        def hook(*args, _orig=orig, _label=label):
-            return around(_label, _orig, args)
+        def hook(*args, _orig=orig, _label=label, **kwargs):
+            return around(_label, functools.partial(_orig, **kwargs) if kwargs else _orig, args)
 
         saved.append((module, attr, orig))
         setattr(module, attr, hook)

@@ -96,8 +96,13 @@ def test_state_from_numpy_round_trip_bit_exact():
         "assert 'jax' not in sys.modules, 'demo imported jax'",
         "import sys, fluidsimulation_tpu_torch.utils.kernel_times; "
         "assert 'jax' not in sys.modules, 'kernel_times imported jax'",
+        "import sys, fluidsimulation_tpu_torch.render.raytrace, "
+        "fluidsimulation_tpu_torch.render.interior, fluidsimulation_tpu_torch.render.camera; "
+        "assert 'jax' not in sys.modules, 'render imported jax'; "
+        "assert not any(m.split('.')[0] == 'fluidsimulation_tpu' for m in sys.modules), "
+        "'render imported the JAX package'",
     ],
-    ids=["package", "chip_smoke", "demo", "kernel_times"],
+    ids=["package", "chip_smoke", "demo", "kernel_times", "render"],
 )
 def test_port_imports_no_jax(code):
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)

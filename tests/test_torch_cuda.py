@@ -21,7 +21,8 @@ with one NaN position steps twice on the card without a raise (the NaN
 rule). The combined-key pack (pure copies) must equal its plain version
 bit for bit (int32 views) at shapes past every ragged edge of its tiles, at
 64^3 and at 128^3, also with NaN, +-inf and -0.0 next to its zero halo, and
-two launches must give the same bits.
+two launches must give the same bits. The renderer (plain PyTorch, no hand
+kernel) gives the CPU's 32^3 frame on the card.
 """
 
 import numpy as np
@@ -522,3 +523,28 @@ def test_step_on_card_matches_cpu(dev):
     for name in ("pos", "vel", "u", "v", "w", "phi", "k1"):
         torch.testing.assert_close(getattr(card, name).cpu(), getattr(cpu, name),
                                    rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(band_rows=25, band_cols=33, return_t=True),
+                                dict(bounces=1, overstep=1.5, sphere_trace=False)],
+                         ids=["default", "tiles_return_t", "bounces1_overstep"])
+def test_render_on_card_matches_cpu(dev, kw):
+    """The renderer (plain PyTorch) on the card against the CPU on a 32^3
+    state stepped three times on the CPU, at 80x60: within 1e-6 outside the
+    quirk pixels (sqrt and the transcendentals go through float64 on both),
+    the march ts too."""
+    from fluidsimulation_tpu_torch.render import raytrace
+    from fluidsimulation_tpu_torch.render.camera import OrbitCamera
+
+    s = ft.init_state(CFG, "cpu")
+    for _ in range(3):
+        s = ft.step(s, 1.0 / 60.0, CFG)
+    cam = OrbitCamera().frame(80, 60)
+    cpu = raytrace.render_frame(s.phi, *cam, width=80, height=60, **kw)
+    card = raytrace.render_frame(s.phi.to(dev), *cam, width=80, height=60, **kw)
+    if kw.get("return_t"):
+        (cpu, t_cpu), (card, t_card) = cpu, card
+        torch.testing.assert_close(t_card.cpu(), t_cpu, rtol=0, atol=1e-6)
+    assert card.device.type == "cuda"
+    keep = ~raytrace.quirk_pixels(*cam, 80, 60)
+    torch.testing.assert_close(card.cpu()[keep], cpu[keep], rtol=0, atol=1e-6)

@@ -2,7 +2,9 @@
 
 ``main`` runs at 16^3 on the CPU. Its checkpoint loads in the JAX package
 and a JAX checkpoint loads in the port, bit for bit; Meter and check_state
-give the JAX answers on the same states."""
+give the JAX answers on the same states. With --render-every it writes the
+frames JAX's write_ppm writes of the same arrays, and the camera commands
+move the camera as JAX's OrbitCamera moves."""
 
 import logging
 import os
@@ -16,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+from fluidsimulation_tpu.app.demo import write_ppm as jax_write_ppm
 from fluidsimulation_tpu.core.config import SimConfig as JaxConfig
 from fluidsimulation_tpu.core.state import init_state as jax_init
+from fluidsimulation_tpu.render.camera import OrbitCamera as JaxCamera
 from fluidsimulation_tpu.solver.step3d import step_jit
 from fluidsimulation_tpu.utils import checkpoint as jax_cp
 from fluidsimulation_tpu.utils import metrics as jax_metrics
@@ -26,6 +30,7 @@ import fluidsimulation_tpu_torch as ft
 from fluidsimulation_tpu_torch.app.demo import main
 from fluidsimulation_tpu_torch.solver.step3d import clamp_dt
 from fluidsimulation_tpu_torch.utils import checkpoint, metrics
+from fluidsimulation_tpu_torch.utils.profiling import hooked
 
 ROOT = Path(__file__).resolve().parent.parent
 N = 16
@@ -81,12 +86,94 @@ def test_jax_checkpoint_loads_in_port_bit_exact(tmp_path):
         checkpoint.load_state(path, "cpu", ft.SimConfig(nx=8, ny=8, nz=8, cells_per_meter=8.0))
 
 
-@pytest.mark.parametrize("flag", [["--render-every", "2"], ["--two-d"], ["--transfer", "apic"],
+@pytest.mark.parametrize("flag", [["--serve", "8000"], ["--two-d"], ["--transfer", "apic"],
                                   ["--profile"]])
 def test_flags_of_unported_slices_are_refused(flag):
     with pytest.raises(SystemExit) as e:
         main([*flag, "--device", "cpu", "--steps", "0"])
     assert e.value.code != 0
+
+
+def _frames_drawn(argv):
+    """main(argv), recording each frame the demo renders: the camera
+    vectors, the width and height it asked for and the image returned."""
+    drawn = []
+
+    def record(label, orig, args):
+        img = orig(*args)
+        drawn.append((args[1:5], orig.keywords["width"], orig.keywords["height"], img))
+        return img
+
+    with hooked([("app.demo", "render_frame", "render")], record):
+        assert main(argv) == 0
+    return drawn
+
+
+def test_demo_writes_frames_as_jax_write_ppm(tmp_path):
+    """--render-every 2 for 3 steps at 12^3 writes frames 0 and 2, each the
+    bytes JAX's write_ppm writes of the rendered array."""
+    out = tmp_path / "out"
+    drawn = _frames_drawn(["--render-every", "2", "--device", "cpu", "--grid", "12",
+                           "--steps", "3", "--width", "32", "--height", "24", "--out", str(out)])
+    assert sorted(p.name for p in out.iterdir()) == ["frame_00000.ppm", "frame_00002.ppm"]
+    assert len(drawn) == 2
+    for name, (_, w, h, img) in zip(["frame_00000.ppm", "frame_00002.ppm"], drawn):
+        assert (w, h) == (32, 24) and img.shape == (24, 32, 3)
+        jax_write_ppm(str(tmp_path / "jax.ppm"), img.numpy())
+        assert (out / name).read_bytes() == (tmp_path / "jax.ppm").read_bytes()
+
+
+def test_render_scale_gives_full_size_frame(tmp_path):
+    """--render-scale 2 traces 16x12 (21x12 for 41x24, rounded up) and
+    nearest-upscales to the size asked for, cropped."""
+    for width, traced in [(32, 16), (41, 21)]:
+        out = tmp_path / str(width)
+        drawn = _frames_drawn(["--render-every", "1", "--render-scale", "2", "--device", "cpu",
+                               "--grid", "12", "--steps", "1", "--width", str(width),
+                               "--height", "24", "--out", str(out)])
+        (_, w, h, img), = drawn
+        assert (w, h) == (traced, 12)
+        data = (out / "frame_00000.ppm").read_bytes()
+        header = b"P6\n%d 24\n255\n" % width
+        assert data.startswith(header) and len(data) == len(header) + width * 24 * 3
+        pixels = np.frombuffer(data[len(header):], np.uint8).reshape(24, width, 3)
+        small = (np.clip(img.numpy(), 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+        up = np.repeat(np.repeat(small, 2, axis=0), 2, axis=1)[:24, :width]
+        np.testing.assert_array_equal(pixels, up)
+
+
+def test_camera_commands_move_as_jax(tmp_path, monkeypatch, capsys):
+    """'o X Y', 'z DY' and '0' on the stdin stream (FST_DEMO_STDIN) move the
+    camera as JAX's OrbitCamera does, a step at a time; malformed commands
+    ('o 1', 'z x') are ignored."""
+    cmds = ["o 10 5", "z 3", "o 1", "o -40 12", "z x", "0", "z -2"]
+    read_fd, write_fd = os.pipe()
+    os.write(write_fd, "".join(c + "\n" for c in cmds).encode())
+    os.close(write_fd)
+    monkeypatch.setenv("FST_DEMO_STDIN", "1")
+    with os.fdopen(read_fd) as stdin:
+        monkeypatch.setattr(sys, "stdin", stdin)
+        drawn = _frames_drawn(["--render-every", "1", "--device", "cpu", "--grid", "8",
+                               "--steps", str(len(cmds)), "--width", "16", "--height", "12",
+                               "--out", str(tmp_path)])
+    text = capsys.readouterr().out
+    assert "ignoring malformed command: 'o 1'" in text
+    assert "ignoring malformed command: 'z x'" in text
+    cam = JaxCamera()
+    assert len(drawn) == len(cmds)
+    for cmd, (vectors, w, h, _) in zip(cmds, drawn):
+        name, *args = cmd.split()
+        try:
+            if name == "o":
+                cam.orbit(float(args[0]), float(args[1]))
+            elif name == "z":
+                cam.zoom(float(args[0]), 12)
+        except (ValueError, IndexError):
+            pass
+        if name == "0":
+            cam.reset()
+        for got, want in zip(vectors, cam.frame(w, h)):
+            np.testing.assert_array_equal(got, want, err_msg=cmd)
 
 
 def test_demo_without_card_raises():
