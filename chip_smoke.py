@@ -57,10 +57,10 @@ Phases, each printing before the next:
      frames of the final phi of phase 3 (band_rows=100) and of phase 5
      (band_rows=64): finite, the shown frame's std > 0.01, 3 frames after
      1 warm-up timed by CUDA events, host syncs a frame, peak device
-     memory a frame, the card's busy time a frame, sim_render_fps; at
-     128^3 also bounces 1 and 0 and overstep 1.5 once, and at both an
-     untiled frame (band_rows=0) once; then the demo at 64^3 with
-     --render-every writing PPM frames
+     memory a frame, sim_render_fps; at 128^3 also bounces 1 and 0 and
+     overstep 1.5 once, and at both an untiled frame (band_rows=0) once,
+     bit-equal to the tiled one; then the demo at 64^3 with --render-every
+     writing PPM frames
   8  {"kernels": [...], "render": {...}} and then {"ok": true, "device": {...}}
 """
 
@@ -784,23 +784,27 @@ def time_frames(label, phi, band_rows, step_ms, card, extra=()):
     peak = torch.cuda.max_memory_allocated() - base
     if not torch.equal(img, first):
         raise AssertionError(f"{label}: the frame under sync counting differs")
-    busy = device_ms(frame, 1)
     ms = statistics.median(times)
     fps = 1e3 / (step_ms + ms)
     say(f"phase R [{label}]: {WIDTH}x{HEIGHT} band_rows={band_rows}: finite, shown std {std!r}; "
         f"median frame {ms!r} ms of {times!r} (CUDA events, "
         f"{FRAMES} after 1 warm-up); {syncs} host syncs a frame ({reads} of them the marches' "
         f"reads of 'any lane left'); peak device memory of a frame {peak} B above the {base} B "
-        f"resident; the card busy {busy!r} ms of a frame (torch.profiler), {busy / ms!r} of the "
-        f"median; sim_render_fps = 1 / (step {step_ms!r} ms + frame {ms!r} ms) = {fps!r} on {card}")
+        f"resident; sim_render_fps = 1 / (step {step_ms!r} ms + frame {ms!r} ms) = {fps!r} on {card}")
     out = {"ms": ms, "frame_ms": times, "host_syncs": syncs, "march_reads": reads,
-           "peak_bytes": peak, "device_ms": busy, "step_ms": step_ms, "sim_render_fps": fps}
+           "peak_bytes": peak, "step_ms": step_ms, "sim_render_fps": fps}
     for name, kw in extra:
         img, ms = timed(**kw)
         std = check_frame(f"{label} {name}", img, (HEIGHT, WIDTH, 3))
+        note = ""
+        if set(kw) == {"band_rows"}:
+            # Tiles change only which rays march together: the same bits.
+            if not torch.equal(img, first):
+                raise AssertionError(f"{label} {name}: the frame differs from the tiled one")
+            note = ", bit-equal to the tiled frame"
         out[f"{name}_ms"] = ms
         say(f"phase R [{label}] {name}: one frame {ms!r} ms (CUDA events), finite, shown std "
-            f"{std!r} on {card}")
+            f"{std!r}{note} on {card}")
     return out
 
 

@@ -11,7 +11,7 @@ traceWater0). Lanes that have converged are frozen by their own flags, so
 a loop may run past the point where every lane is done without changing
 the result; the marches read "is any lane still marching" back to the
 host once every CHECK_EVERY iterations (the inside forward march once a
-block of SPEC probes), and ``_any`` is the renderer's only host read.
+block of SPEC probes) through ``_any``, their only host read.
 
 The reference quirks the JAX module replicates stay (its docstring,
 raytrace.py:11-21): the top-level reflection sum of traceGlass is
@@ -82,7 +82,7 @@ def _sqrt(x):
 
 
 def _any(mask) -> bool:
-    """Whether any lane of ``mask`` is set: the renderer's one host read."""
+    """Whether any lane of ``mask`` is set: the marches' one host read."""
     return bool(mask.any())
 
 

@@ -6,6 +6,7 @@ give the JAX answers on the same states. With --render-every it writes the
 frames JAX's write_ppm writes of the same arrays, and the camera commands
 move the camera as JAX's OrbitCamera moves."""
 
+import contextlib
 import logging
 import os
 import subprocess
@@ -96,17 +97,30 @@ def test_flags_of_unported_slices_are_refused(flag):
 
 def _frames_drawn(argv):
     """main(argv), recording each frame the demo renders: the camera
-    vectors, the width and height it asked for and the image returned."""
+    vectors, the keywords it passed (width, height, t_seed, ...) and what
+    render_frame returned."""
     drawn = []
 
     def record(label, orig, args):
-        img = orig(*args)
-        drawn.append((args[1:5], orig.keywords["width"], orig.keywords["height"], img))
-        return img
+        out = orig(*args)
+        drawn.append((args[1:5], orig.keywords, out))
+        return out
 
     with hooked([("app.demo", "render_frame", "render")], record):
         assert main(argv) == 0
     return drawn
+
+
+@contextlib.contextmanager
+def _stdin(monkeypatch, lines):
+    """The demo's stdin stream (FST_DEMO_STDIN) holding ``lines``."""
+    read_fd, write_fd = os.pipe()
+    os.write(write_fd, "".join(line + "\n" for line in lines).encode())
+    os.close(write_fd)
+    monkeypatch.setenv("FST_DEMO_STDIN", "1")
+    with os.fdopen(read_fd) as stdin:
+        monkeypatch.setattr(sys, "stdin", stdin)
+        yield
 
 
 def test_demo_writes_frames_as_jax_write_ppm(tmp_path):
@@ -117,8 +131,8 @@ def test_demo_writes_frames_as_jax_write_ppm(tmp_path):
                            "--steps", "3", "--width", "32", "--height", "24", "--out", str(out)])
     assert sorted(p.name for p in out.iterdir()) == ["frame_00000.ppm", "frame_00002.ppm"]
     assert len(drawn) == 2
-    for name, (_, w, h, img) in zip(["frame_00000.ppm", "frame_00002.ppm"], drawn):
-        assert (w, h) == (32, 24) and img.shape == (24, 32, 3)
+    for name, (_, kw, img) in zip(["frame_00000.ppm", "frame_00002.ppm"], drawn):
+        assert (kw["width"], kw["height"]) == (32, 24) and img.shape == (24, 32, 3)
         jax_write_ppm(str(tmp_path / "jax.ppm"), img.numpy())
         assert (out / name).read_bytes() == (tmp_path / "jax.ppm").read_bytes()
 
@@ -131,8 +145,8 @@ def test_render_scale_gives_full_size_frame(tmp_path):
         drawn = _frames_drawn(["--render-every", "1", "--render-scale", "2", "--device", "cpu",
                                "--grid", "12", "--steps", "1", "--width", str(width),
                                "--height", "24", "--out", str(out)])
-        (_, w, h, img), = drawn
-        assert (w, h) == (traced, 12)
+        (_, kw, img), = drawn
+        assert (kw["width"], kw["height"]) == (traced, 12)
         data = (out / "frame_00000.ppm").read_bytes()
         header = b"P6\n%d 24\n255\n" % width
         assert data.startswith(header) and len(data) == len(header) + width * 24 * 3
@@ -147,12 +161,7 @@ def test_camera_commands_move_as_jax(tmp_path, monkeypatch, capsys):
     camera as JAX's OrbitCamera does, a step at a time; malformed commands
     ('o 1', 'z x') are ignored."""
     cmds = ["o 10 5", "z 3", "o 1", "o -40 12", "z x", "0", "z -2"]
-    read_fd, write_fd = os.pipe()
-    os.write(write_fd, "".join(c + "\n" for c in cmds).encode())
-    os.close(write_fd)
-    monkeypatch.setenv("FST_DEMO_STDIN", "1")
-    with os.fdopen(read_fd) as stdin:
-        monkeypatch.setattr(sys, "stdin", stdin)
+    with _stdin(monkeypatch, cmds):
         drawn = _frames_drawn(["--render-every", "1", "--device", "cpu", "--grid", "8",
                                "--steps", str(len(cmds)), "--width", "16", "--height", "12",
                                "--out", str(tmp_path)])
@@ -161,7 +170,7 @@ def test_camera_commands_move_as_jax(tmp_path, monkeypatch, capsys):
     assert "ignoring malformed command: 'z x'" in text
     cam = JaxCamera()
     assert len(drawn) == len(cmds)
-    for cmd, (vectors, w, h, _) in zip(cmds, drawn):
+    for cmd, (vectors, kw, _) in zip(cmds, drawn):
         name, *args = cmd.split()
         try:
             if name == "o":
@@ -172,8 +181,26 @@ def test_camera_commands_move_as_jax(tmp_path, monkeypatch, capsys):
             pass
         if name == "0":
             cam.reset()
-        for got, want in zip(vectors, cam.frame(w, h)):
+        for got, want in zip(vectors, cam.frame(kw["width"], kw["height"])):
             np.testing.assert_array_equal(got, want, err_msg=cmd)
+
+
+def test_temporal_seed_cleared_on_camera_moves_and_resets(tmp_path, monkeypatch):
+    """--temporal: each frame is seeded with the march ts the previous frame
+    returned, but not the first, nor the one after a camera move ('o') or
+    a reset ('r')."""
+    cmds = ["", "", "o 5 5", "", "r", ""]
+    with _stdin(monkeypatch, cmds):
+        drawn = _frames_drawn(["--render-every", "1", "--temporal", "--device", "cpu", "--grid",
+                               "8", "--steps", str(len(cmds)), "--width", "16", "--height", "12",
+                               "--out", str(tmp_path)])
+    assert len(drawn) == len(cmds)
+    seeded = [kw["t_seed"] is not None for _, kw, _ in drawn]
+    assert seeded == [False, True, False, True, False, True]
+    for (_, _, before), (_, kw, _) in zip(drawn, drawn[1:]):
+        assert kw["return_t"] is True
+        if kw["t_seed"] is not None:
+            assert kw["t_seed"] is before[1]
 
 
 def test_demo_without_card_raises():

@@ -21,7 +21,6 @@ import numpy as np
 import pytest
 import torch
 
-import jax
 import jax.numpy as jnp
 
 from fluidsimulation_tpu.core.config import SimConfig as JaxConfig
