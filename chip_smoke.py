@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the six hand-written CUDA kernels from csrc/, compares each with
-its plain PyTorch version on the card, and drives three paths of the port,
+its plain PyTorch version on the card, and drives five paths of the port,
 each with the launch counts set to 0 just before it and read just after,
 then renders 800x600 frames of the level sets of the first two:
 
@@ -15,11 +15,14 @@ then renders 800x600 frames of the level sets of the first two:
   * the demo entry point at its defaults, ``app.demo.main``: 64^3, ppc 2,
     953,312 particles, 60 steps at rate 0.5, saving its final state;
   * the physical configuration of bench.py: 128^3, ppc 2, 8,001,504
-    particles, dt = 1/120, 10 steps.
+    particles, dt = 1/120, 10 steps;
+  * the APIC family (solver/apic.py::step_apic): the 128^3 dam break at
+    ppc 1, 12 steps, and the demo at its defaults with --transfer apic.
 
 Every step of every path must launch each kernel the expected number of
 times (the 24 sweeps are one C call, one launch count); the combined-key
-pack, which no step calls, 0 times. On the final
+pack, which no step calls, 0 times; an APIC step P2G and the FLIP gather 0
+times too. On the final
 states of the first two paths it then drives the combined-key interpolation
 (core/interp_combined.py): the pack kernel, the interpolation of every
 particle through its table, and RK3 stages 2-3 through it. A 32^3 card step
@@ -30,8 +33,9 @@ Phases, each printing before the next:
   0  card name and power limit; TF32 off
   1  kernel build (seconds)
   2  kernels vs plain versions at 32^3 (here), at 128^3 (after phase 3),
-     at 64^3/ppc 2 (after phase 5) and at 128^3/ppc 2 (after phase 6), on
-     the inputs each kernel received in the last step of the path; P2G, the
+     at 64^3/ppc 2 (after phase 5), at 128^3/ppc 2 (after phase 6) and,
+     for the pass, the sweeps and the SOR, at the APIC 128^3 step (phase
+     A), on the inputs each kernel received in the last step of the path; P2G, the
      27-neighbourhood pass and the FLIP gather launched twice must give the
      same bits; at the last three, every kernel's device time under
      torch.profiler (the report's ms) and its time by events, the sweeps
@@ -44,6 +48,15 @@ Phases, each printing before the next:
      particle non-finite, grids finite)
   5  the demo at its defaults; launches per step; checkpoint reload
   6  10 steps of 128^3 / ppc 2; median step time, peak device memory
+  A  APIC: a 32^3 state stepped 3 times on the card vs the same steps on
+     the CPU (1e-4 abs, C 2 m x 1e-4: apic_bound); 128^3 ppc 1 (1,000,188
+     particles, dt = 1/60), 10 steps after 2 warm-up, median step and peak
+     device memory, then the pass, the sweeps and the SOR vs their plain
+     versions on the last step's inputs; the demo at its defaults with
+     --transfer apic (64^3, ppc 2, 60 steps at rate 0.5, --save-state),
+     median step, checkpoint reload bit for bit; every step launching the
+     pass, the sweeps and the SOR once and no other kernel; all fields
+     finite
   7  combined-key interpolation, on the final state of phase 3 (128^3,
      after phase 3's kernel checks; its times reported) and of phase 5
      (64^3 ppc 2; times printed only): the pack's launch count, the pack vs
@@ -61,7 +74,8 @@ Phases, each printing before the next:
      overstep 1.5 once, and at both an untiled frame (band_rows=0) once,
      bit-equal to the tiled one; then the demo at 64^3 with --render-every
      writing PPM frames
-  8  {"kernels": [...], "render": {...}} and then {"ok": true, "device": {...}}
+  8  {"kernels": [...], "apic": {...}, "render": {...}} and then
+     {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -100,6 +114,9 @@ SMALL_FRAME = (160, 120)
 # march exit one step apart at a threshold).
 FRAME_ATOL, FRAME_FRAC, FRAME_MAX = 2e-4, 1e-3, 0.5
 FIELDS = ("pos", "vel", "u", "v", "w", "phi")
+APIC_FIELDS = ("pos", "vel", "C", "u", "v", "w", "phi")
+APIC_STEPS = 10  # timed APIC steps at 128^3, after N_WARMUP
+APIC_ATOL = 1e-4  # phase A's card-vs-CPU bound (apic_bound)
 
 # H100 SXM data-sheet peaks at 700 W: device memory rate, and float32
 # outside the tensor cores (every kernel here is float32 arithmetic).
@@ -419,12 +436,13 @@ def sweep_sor_details(captured, label: str, card: str) -> None:
         f"{1e3 * (air_ms - prologue_ms) / barriers!r} us a barrier on {card}")
 
 
-def timed_steps(check, n_steps, state, dt, cfg, captured):
-    """n_steps of ``step`` through the launch check, CUDA-event timed; the
-    last step's kernel arguments go to ``captured``. Returns the state and
-    the step times after the warm-up."""
+def timed_steps(check, n_steps, state, dt, cfg, captured, step=None):
+    """n_steps of ``step`` (by default the PIC/FLIP step) through the
+    launch check, CUDA-event timed; the last step's kernel arguments go to
+    ``captured``. Returns the state and the step times after the warm-up."""
     import fluidsimulation_tpu_torch as ft
 
+    step = ft.step if step is None else step
     times = []
     for i in range(n_steps):
         start = torch.cuda.Event(enable_timing=True)
@@ -432,9 +450,9 @@ def timed_steps(check, n_steps, state, dt, cfg, captured):
         start.record()
         if i == n_steps - 1:
             with capture(captured):
-                state = check.step(lambda: ft.step(state, dt, cfg))
+                state = check.step(lambda: step(state, dt, cfg))
         else:
-            state = check.step(lambda: ft.step(state, dt, cfg))
+            state = check.step(lambda: step(state, dt, cfg))
         end.record()
         torch.cuda.synchronize()
         if i >= N_WARMUP:
@@ -443,8 +461,8 @@ def timed_steps(check, n_steps, state, dt, cfg, captured):
 
 
 def check_finite(label: str, state) -> None:
-    for name in (*FIELDS, "k1"):
-        t = getattr(state, name)
+    for name in (*FIELDS, "k1", "C"):
+        t = getattr(state, name, None)
         if t is not None and not bool(t.isfinite().all()):
             raise AssertionError(f"{label}: non-finite values in {name}")
 
@@ -596,22 +614,24 @@ def nan_phase(cfg, dev) -> None:
         f"guarded steps on the card: no raise, healthy False, only it non-finite, u v w phi finite")
 
 
-def run_demo(table, results, card):
-    """Phase 5: app.demo.main at its defaults, every step through the
-    launch check; then the kernels on the last step's inputs and phase 7
-    on the final state."""
+def drive_demo(label, check, transfer, load, fields, card):
+    """app.demo.main at its defaults with ``--transfer transfer`` and
+    --save-state, every step through the launch check and CUDA-event
+    timed, the last step's kernel arguments captured; check_state's
+    verdicts all true, every field finite, the centre of mass fallen, the
+    checkpoint reloaded by ``load`` equal to the final state in ``fields``.
+    Returns (median step ms, the final state, its cfg, its dt, captured)."""
     from fluidsimulation_tpu_torch.app import demo
-    from fluidsimulation_tpu_torch.utils.checkpoint import load_state
     from fluidsimulation_tpu_torch.utils.profiling import hooked
 
-    check = LaunchCheck("phase 5 (demo 64^3 ppc 2)")
+    step_attr = "step_apic" if transfer == "apic" else "step"
     times, seen, verdicts, captured = [], {}, [], {}
 
     def counted_step(orig_step, state, dt, cfg):
         i = check.steps
         if i == 0:
             if state.pos.shape[0] != DEMO_PARTICLES:
-                raise AssertionError(f"demo: expected {DEMO_PARTICLES} particles, "
+                raise AssertionError(f"{label}: expected {DEMO_PARTICLES} particles, "
                                      f"got {state.pos.shape[0]}")
             seen["y0"] = float(state.pos[:, 1].mean())
         start = torch.cuda.Event(enable_timing=True)
@@ -633,42 +653,57 @@ def run_demo(table, results, card):
         verdicts.append(ok)
         return ok
 
-    def around(label, orig, args):
-        return (counted_step if label == "step" else recorded_check)(orig, *args)
+    def around(name, orig, args):
+        return (counted_step if name == "step" else recorded_check)(orig, *args)
 
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as out_dir:
-        with hooked([("app.demo", "step", "step"), ("app.demo", "check_state", "check")], around):
-            rc = demo.main(["--device", "cuda", "--save-state", "--out", out_dir])
+        with hooked([("app.demo", step_attr, "step"), ("app.demo", "check_state", "check")],
+                    around):
+            rc = demo.main(["--device", "cuda", "--transfer", transfer, "--save-state",
+                            "--out", out_dir])
         if rc != 0:
-            raise AssertionError(f"demo: main returned {rc}")
-        launches = check.totals()
+            raise AssertionError(f"{label}: main returned {rc}")
         if check.steps != DEMO_STEPS:
-            raise AssertionError(f"demo: ran {check.steps} steps, expected {DEMO_STEPS}")
+            raise AssertionError(f"{label}: ran {check.steps} steps, expected {DEMO_STEPS}")
         if not verdicts or not all(verdicts):
-            raise AssertionError(f"demo: check_state verdicts {verdicts}")
+            raise AssertionError(f"{label}: check_state verdicts {verdicts}")
         state, cfg = seen["state"], seen["cfg"]
-        check_finite("phase 5", state)
+        check_finite(label, state)
         y1 = float(state.pos[:, 1].mean())
         if not y1 < seen["y0"]:
-            raise AssertionError(f"demo: centre of mass did not fall ({seen['y0']} -> {y1})")
-        loaded = load_state(str(Path(out_dir) / "final_state.npz"), state.pos.device, cfg)
-        for name in FIELDS:
+            raise AssertionError(f"{label}: centre of mass did not fall ({seen['y0']} -> {y1})")
+        loaded = load(str(Path(out_dir) / "final_state.npz"), state.pos.device, cfg)
+        for name in fields:
             if not torch.equal(getattr(loaded, name), getattr(state, name)):
-                raise AssertionError(f"demo: checkpoint field {name} differs from the final state")
+                raise AssertionError(f"{label}: checkpoint field {name} differs from the final "
+                                     "state")
     step_ms = statistics.median(times[N_WARMUP:])
-    say(f"phase 5: {check.steps} steps of {cfg.nx}^3, {DEMO_PARTICLES} particles; all fields "
+    say(f"{label}: {check.steps} steps of {cfg.nx}^3, {DEMO_PARTICLES} particles; all fields "
         f"finite; mean y {seen['y0']!r} -> {y1!r}; checkpoint reloads equal; "
         f"{len(verdicts)} check_state verdicts all true")
-    say(f"phase 5: median step {step_ms!r} ms over {len(times) - N_WARMUP} steps after "
+    say(f"{label}: median step {step_ms!r} ms over {len(times) - N_WARMUP} steps after "
         f"{N_WARMUP} warm-up (min {min(times[N_WARMUP:])!r}, max {max(times[N_WARMUP:])!r}) "
         f"on {card}")
+    return step_ms, state, cfg, seen["dt"], captured
+
+
+def run_demo(table, results, card):
+    """Phase 5: app.demo.main at its defaults, every step through the
+    launch check; then the kernels on the last step's inputs and phase 7
+    on the final state."""
+    from fluidsimulation_tpu_torch.utils.checkpoint import load_state
+
+    check = LaunchCheck("phase 5 (demo 64^3 ppc 2)")
+    step_ms, state, cfg, dt, captured = drive_demo("phase 5", check, "flip", load_state, FIELDS,
+                                                   card)
+    launches = check.totals()
     check_kernels(table, ("seed", "sweep", "p2g2", "sor", "g2p"), captured,
                   f"{cfg.nx}^3 ppc 2", results, timed=("seed", "sweep", "p2g2", "sor", "g2p"),
                   reported=("p2g2",))
     sweep_sor_details(captured, f"{cfg.nx}^3 ppc 2", card)
-    combined_launches = run_combined(f"{cfg.nx}^3 ppc 2", cfg, state, seen["dt"], results,
+    combined_launches = run_combined(f"{cfg.nx}^3 ppc 2", cfg, state, dt, results,
                                      card, report=False)
     return launches, step_ms, combined_launches, state.phi
 
@@ -702,6 +737,98 @@ def run_physical(table, results, card):
                   f"{PHYS_N}^3 ppc 2", results, timed=("seed", "sweep", "p2g2", "sor", "g2p"))
     sweep_sor_details(captured, f"{PHYS_N}^3 ppc 2", card)
     return launches, step_ms, peak
+
+
+def apic_launches() -> dict:
+    """Kernel module -> launches in one APIC step: the 27-neighbourhood
+    pass, the sweeps and the SOR once; P2G, the FLIP gather and the pack
+    never (the APIC transfers are plain PyTorch)."""
+    from fluidsimulation_tpu_torch.ops import cuda_seed, cuda_sor, cuda_sweep
+
+    return {m: int(m in (cuda_seed, cuda_sweep, cuda_sor)) for m in per_step_launches()}
+
+
+def apic_bound(name: str, cfg) -> float:
+    """Phase A's card-vs-CPU bound: phase 4's 1e-4 abs, and for C that
+    bound carried through G2P's lever, C = 4 m^2 sum w v (x_i - x_p) with
+    sum w |x_i - x_p| about half a cell: 2 m x 1e-4."""
+    return 2 * max(cfg.nx, cfg.ny, cfg.nz) * APIC_ATOL if name == "C" else APIC_ATOL
+
+
+def run_apic(table, results, card) -> dict:
+    """Phase A: the APIC family (solver/apic.py::step_apic) on the card.
+    A 32^3 state stepped 3 times on the card and on the CPU; 128^3 ppc 1,
+    N_WARMUP + APIC_STEPS steps, and the demo with --transfer apic, every
+    step through the launch check; the kernels on the last 128^3 step's
+    inputs."""
+    import fluidsimulation_tpu_torch as ft
+    from fluidsimulation_tpu_torch.utils.checkpoint import load_apic_state
+
+    out: dict = {}
+    small = ft.SimConfig(nx=SMALL_N, ny=SMALL_N, nz=SMALL_N, cells_per_meter=float(SMALL_N),
+                         particles_per_cell_axis=1)
+    cpu_state = ft.init_apic_state(small, "cpu")
+    card_state = cpu_state.to(DEVICE)
+    check = LaunchCheck(f"phase A ({SMALL_N}^3)", apic_launches())
+    for _ in range(3):
+        cpu_state = ft.step_apic(cpu_state, DT, small)
+        card_state = check.step(lambda: ft.step_apic(card_state, DT, small))
+    torch.cuda.synchronize()
+    check.totals()
+    errs = {}
+    for name in APIC_FIELDS:
+        d = float((getattr(card_state, name).cpu() - getattr(cpu_state, name)).abs().max())
+        errs[name] = d
+        limit = apic_bound(name, small)
+        say(f"phase A: {SMALL_N}^3, 3 steps, card vs CPU, {name}: max abs diff {d!r} "
+            f"(limit {limit!r})")
+        if not d <= limit:
+            raise AssertionError(f"phase A: {name} differs by {d} > {limit}")
+    out[f"card_vs_cpu_{SMALL_N}^3"] = errs
+
+    cfg = ft.SimConfig(nx=MAIN_N, ny=MAIN_N, nz=MAIN_N, cells_per_meter=float(MAIN_N),
+                       particles_per_cell_axis=1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = ft.init_apic_state(cfg, DEVICE)
+    if state.pos.shape[0] != MAIN_PARTICLES:
+        raise AssertionError(f"phase A: expected {MAIN_PARTICLES} particles, "
+                             f"got {state.pos.shape[0]}")
+    y0 = float(state.pos[:, 1].mean())
+    check = LaunchCheck(f"phase A (APIC {MAIN_N}^3 ppc 1)", apic_launches())
+    captured: dict = {}
+    state, times = timed_steps(check, N_WARMUP + APIC_STEPS, state, DT, cfg, captured,
+                               step=ft.step_apic)
+    launches = check.totals()
+    check_finite("phase A", state)
+    y1 = float(state.pos[:, 1].mean())
+    if not y1 < y0:
+        raise AssertionError(f"phase A: centre of mass did not fall ({y0} -> {y1})")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(times)
+    say(f"phase A: APIC {MAIN_N}^3 ppc 1, {MAIN_PARTICLES} particles, dt={DT!r}: all fields "
+        f"finite, mean y {y0!r} -> {y1!r}; median step {step_ms!r} ms over {len(times)} steps "
+        f"after {N_WARMUP} warm-up (min {min(times)!r}, max {max(times)!r}); peak device memory "
+        f"{peak} B ({peak / 2**30:.3f} GiB) on {card}")
+    check_kernels(table, ("seed", "sweep", "sor"), captured, f"APIC {MAIN_N}^3", results,
+                  timed=("seed", "sweep", "sor"))
+    del state, captured
+    label = f"{MAIN_N}^3 ppc 1"
+    out.update(step_ms={label: step_ms}, step_times={label: times}, peak_bytes={label: peak},
+               launches={label: launches})
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    check = LaunchCheck("phase A (APIC demo 64^3 ppc 2)", apic_launches())
+    demo_ms, state, _, _, _ = drive_demo("phase A demo", check, "apic", load_apic_state,
+                                         APIC_FIELDS, card)
+    demo_launches = check.totals()
+    demo_peak = torch.cuda.max_memory_allocated()
+    say(f"phase A demo: peak device memory {demo_peak} B ({demo_peak / 2**30:.3f} GiB)")
+    label = "demo 64^3 ppc 2"
+    out["step_ms"][label], out["peak_bytes"][label] = demo_ms, demo_peak
+    out["launches"][label] = demo_launches
+    return out
 
 
 def count_syncs(fn):
@@ -989,6 +1116,8 @@ def main() -> int:
     demo_launches, demo_ms, demo_combined_launches, demo_phi = run_demo(table, results, card)
     phys_launches, phys_ms, phys_peak = run_physical(table, results, card)
     torch.cuda.empty_cache()
+    apic = run_apic(table, results, card)
+    torch.cuda.empty_cache()
     render = render_phase(dev, main_phi, step_ms, demo_phi, demo_ms, card)
 
     # Phase 8.
@@ -1020,6 +1149,7 @@ def main() -> int:
                      "combined 128^3 ppc 1": combined_launches,
                      "combined 64^3 ppc 2": demo_combined_launches},
         "peak_bytes_128^3_ppc2": phys_peak,
+        "apic": apic,
         "render": render,
     }))
     say(json.dumps({

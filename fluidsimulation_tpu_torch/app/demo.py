@@ -1,5 +1,6 @@
 """CLI demo: the dam break of FluidSimDemo (FluidSimDemo.cpp) with its
-raytraced frames. Port of the 3D FLIP loop of fluidsimulation_tpu/app/demo.py.
+raytraced frames. Port of the 3D loop of fluidsimulation_tpu/app/demo.py,
+PIC/FLIP and APIC.
 
 Runs the simulation and the renderer on the card by default (``--device
 cuda``); pass ``--device cpu`` to run the plain PyTorch versions of the
@@ -21,7 +22,9 @@ renders a frame of the level set (render/raytrace.py::render_frame) to
 OUT/frame_NNNNN.ppm, a binary PPM. Every 10 steps it prints the step time
 and the Meter summary and checks the state; an anomaly resets the
 simulation, as 'r' does. With --save-state the final state goes to
-OUT/final_state.npz in the JAX package's checkpoint format.
+OUT/final_state.npz in the JAX package's checkpoint format. --transfer apic
+steps the APIC family (solver/apic.py) in place of PIC/FLIP, and saves an
+APIC checkpoint.
 
 Usage:
   python -m fluidsimulation_tpu_torch --grid 64 --steps 120 \
@@ -43,8 +46,9 @@ from ..core.config import SimConfig
 from ..core.state import init_state
 from ..render.camera import OrbitCamera
 from ..render.raytrace import render_frame
+from ..solver.apic import init_apic_state, step_apic
 from ..solver.step3d import clamp_dt, step
-from ..utils.checkpoint import save_state
+from ..utils.checkpoint import save_apic_state, save_state
 from ..utils.metrics import Meter, check_state
 
 
@@ -96,6 +100,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--temporal", action=argparse.BooleanOptionalAction, default=False,
                     help="seed each frame's water marches from the previous frame's hit ts "
                     "while the camera stays still; cleared on camera moves and resets")
+    ap.add_argument("--transfer", choices=("flip", "apic"), default="flip",
+                    help="transfer model: the reference's hybrid PIC/FLIP (default) or the "
+                    "APIC extension (affine particle-in-cell, quadratic B-splines; "
+                    "solver/apic.py; not in the reference)")
     return ap.parse_args(argv)
 
 
@@ -114,7 +122,11 @@ def main(argv=None) -> int:
     )
     os.makedirs(args.out, exist_ok=True)
     print(f"grid {cfg.nx}^3, {cfg.num_particles} particles on {dev}")
-    state = init_state(cfg, dev)
+    if args.transfer == "apic":
+        _init, _step, _save = init_apic_state, step_apic, save_apic_state
+    else:
+        _init, _step, _save = init_state, step, save_state
+    state = _init(cfg, dev)
     cam = OrbitCamera()
     rate = args.rate
     meter = Meter(cfg.num_particles)
@@ -134,7 +146,7 @@ def main(argv=None) -> int:
             elif cmd == "0":
                 cam.reset()
             elif cmd == "r":
-                state = init_state(cfg, dev)
+                state = _init(cfg, dev)
                 seed["t"] = None  # the water jumps discontinuously
             elif cmd == "q":
                 break
@@ -150,7 +162,7 @@ def main(argv=None) -> int:
 
         dt = clamp_dt(cfg, args.dt, rate)
         t0 = time.perf_counter()
-        state = step(state, dt, cfg)
+        state = _step(state, dt, cfg)
         frame = None
         if args.render_every and i % args.render_every == 0:
             frame = _draw(args, cam, state.phi, seed)
@@ -165,10 +177,10 @@ def main(argv=None) -> int:
             print(f"step {i}: {step_ms:.1f} ms  ({meter.summary()})")
             if not check_state(state):
                 print("anomaly detected; resetting (reference 'r' behavior)")
-                state = init_state(cfg, dev)
+                state = _init(cfg, dev)
 
     if args.save_state:
-        save_state(os.path.join(args.out, "final_state.npz"), state, cfg)
+        _save(os.path.join(args.out, "final_state.npz"), state, cfg)
     print(meter.summary())
     return 0
 

@@ -4,6 +4,11 @@ pos, vel are (N, 3) float32 (meters, m/s); the MAC grids are indexed
 [x, y, z] with z contiguous; phi is the cell-centred level set in cell units.
 ``k1`` is the next step's RK3 stage 1, the grid velocity at ``pos`` that the
 FLIP update computes anyway (ops/flip.py); None means advection computes it.
+
+``ApicState`` is the APIC family's state (solver/apic.py): SimState's fields
+without k1, plus the affine rows C. The JAX package keeps it in its
+solver/apic.py; here it sits beside SimState, so that the checkpoints and
+the numpy converters need no solver import.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from .config import SimConfig
 from .seeding import dam_break_particles
 
 _FIELDS = ("pos", "vel", "u", "v", "w", "phi")
+_APIC_FIELDS = ("pos", "vel", "C", "u", "v", "w", "phi")
 
 
 @dataclasses.dataclass
@@ -78,3 +84,32 @@ def state_to_numpy(state: SimState) -> dict[str, np.ndarray | None]:
     out = {name: getattr(state, name).cpu().numpy() for name in _FIELDS}
     out["k1"] = None if state.k1 is None else state.k1.cpu().numpy()
     return out
+
+
+@dataclasses.dataclass
+class ApicState:
+    pos: torch.Tensor  # (N, 3) meters
+    vel: torch.Tensor  # (N, 3) m/s
+    C: torch.Tensor    # (N, 3, 3) 1/s: the affine row of each component
+    u: torch.Tensor
+    v: torch.Tensor
+    w: torch.Tensor
+    phi: torch.Tensor
+
+    def to(self, device) -> "ApicState":
+        """The same state with every tensor on ``device``."""
+        return ApicState(**{name: getattr(self, name).to(device) for name in _APIC_FIELDS})
+
+
+def apic_state_from_numpy(src, device) -> ApicState:
+    """Carry a JAX ApicState (or any object with numpy-convertible fields
+    pos, vel, C, u, v, w and phi) onto ``device``."""
+    return ApicState(**{
+        name: torch.from_numpy(np.array(getattr(src, name), dtype=np.float32)).to(device)
+        for name in _APIC_FIELDS
+    })
+
+
+def apic_state_to_numpy(state: ApicState) -> dict[str, np.ndarray]:
+    """The APIC state's fields as host numpy arrays."""
+    return {name: getattr(state, name).cpu().numpy() for name in _APIC_FIELDS}

@@ -40,3 +40,13 @@ def advect_rk3_cached(cfg: SimConfig, u, v, w, k1, pos, dt):
     """advect_rk3 with stage 1 given: k1 is the grid velocity at pos that
     the previous step's FLIP update computed from these same grids."""
     return _rk3(cfg, u, v, w, k1, pos, dt)
+
+
+def advect_rk3_pic(cfg: SimConfig, u, v, w, pos, vel, dt):
+    """RK3 with stage 1 = the particle's own velocity, for the APIC family
+    (solver/apic.py): there vel is the quadratic-spline G2P sample of these
+    grids at pos, taken at the end of the previous step, so stage 1 needs no
+    gather. Stages 2-3 interpolate as advect_rk3 does (the JAX package uses
+    its packed interpolation, equal up to fused multiply-adds). Not for
+    FLIP states, whose velocity is a blend, not a grid sample."""
+    return _rk3(cfg, u, v, w, vel, pos, dt)

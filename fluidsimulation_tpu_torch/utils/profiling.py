@@ -13,19 +13,25 @@ that time over the median step time without the profiler; the profiler's
 own host cost stretches the profiled steps, so their wall time is printed
 beside it but is not the share's denominator.
 
+The APIC step (solver/apic.py::step_apic) is timed the same way, through
+its own sites (APIC_SITES): an ApicState given to stage_times or
+device_time is stepped by step_apic.
+
 Run on the card from the repository root:
 
-    python -m fluidsimulation_tpu_torch.utils.profiling
+    python -m fluidsimulation_tpu_torch.utils.profiling [--transfer apic]
 
 It prints, for the three configurations chip_smoke.py drives (128^3 ppc 1,
-the demo's 64^3 ppc 2, 128^3 ppc 2), the median time of each stage over
-steps 3-12 from the dam-break start, the median step, and the device time
-of steps 13-15, the busy share and the largest device events (kernels by
-name, the hand kernels among them) a step.
+the demo's 64^3 ppc 2, 128^3 ppc 2; with --transfer apic the APIC step at
+the first two), the median time of each stage over steps 3-12 from the
+dam-break start, the median step, and the device time of steps 13-15, the
+busy share and the largest device events (kernels by name, the hand
+kernels among them) a step.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import functools
 import importlib
@@ -55,7 +61,38 @@ SITES = [
     ("solver.step3d", "flip_update_carry", "FLIP"),
     ("solver.step3d", "blur_phi", "blur"),
 ]
-STAGES = list(dict.fromkeys(label for _, _, label in SITES))
+# The APIC step's sites: the level set and projection are the FLIP step's;
+# advection, the transfers and the grid stages are looked up in solver/apic.py.
+APIC_SITES = [
+    ("solver.apic", "advect_rk3_pic", "advect (RK3)"),
+    ("solver.apic", "build_csr", "CSR build"),
+    ("solver.apic", "sort_particles", "sorted gather"),
+    *(site for site in SITES if site[0] == "ops.levelset"),
+    ("solver.apic", "p2g_apic", "APIC P2G"),
+    ("solver.apic", "extrapolate_one_ring", "extrapolate"),
+    ("solver.apic", "add_gravity", "gravity"),
+    *(site for site in SITES if site[0] == "ops.project"),
+    ("solver.apic", "g2p_apic", "APIC G2P"),
+    ("solver.apic", "blur_phi", "blur"),
+]
+
+
+def stages_of(sites) -> list[str]:
+    """The stage labels of ``sites``, in step order, each once."""
+    return list(dict.fromkeys(label for _, _, label in sites))
+
+
+STAGES = stages_of(SITES)
+APIC_STAGES = stages_of(APIC_SITES)
+
+
+def _stepper(state):
+    """(step function, its sites) for the state's family."""
+    from ..core.state import ApicState
+    from ..solver.apic import step_apic
+    from ..solver.step3d import step
+
+    return (step_apic, APIC_SITES) if isinstance(state, ApicState) else (step, SITES)
 
 
 class _Clock:
@@ -98,8 +135,9 @@ def hooked(sites, around):
             setattr(module, attr, orig)
 
 
-def stage_marks(device: torch.device, marks: list):
-    """While open, every stage call appends (label, start, end) to marks."""
+def stage_marks(device: torch.device, marks: list, sites):
+    """While open, every stage call of ``sites`` appends (label, start,
+    end) to marks."""
 
     def timed(label, orig, args):
         start = _Clock(device)
@@ -107,26 +145,27 @@ def stage_marks(device: torch.device, marks: list):
         marks.append((label, start, _Clock(device)))
         return out
 
-    return hooked(SITES, timed)
+    return hooked(sites, timed)
 
 
 def stage_times(state, dt, cfg, n_steps: int):
-    """Run n_steps steps with every stage marked. Returns the final state,
-    a list of {stage: ms} per step (a stage called several times in a step
-    is summed) and the list of step times in ms."""
-    from ..solver.step3d import step
-
+    """Run n_steps steps (step, or step_apic for an ApicState) with every
+    stage marked. Returns the final state, a list of {stage: ms} per step
+    (a stage called several times in a step is summed) and the list of
+    step times in ms."""
+    step, sites = _stepper(state)
+    stages = stages_of(sites)
     device = state.pos.device
     per_step, totals = [], []
     for _ in range(n_steps):
         marks: list = []
-        with stage_marks(device, marks):
+        with stage_marks(device, marks, sites):
             begin = _Clock(device)
             state = step(state, dt, cfg)
             end = _Clock(device)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        row = dict.fromkeys(STAGES, 0.0)
+        row = dict.fromkeys(stages, 0.0)
         for label, start, stop in marks:
             row[label] += start.ms_until(stop)
         per_step.append(row)
@@ -135,14 +174,14 @@ def stage_times(state, dt, cfg, n_steps: int):
 
 
 def device_time(state, dt, cfg, n_steps: int):
-    """Device time and wall time of n_steps steps under torch.profiler.
-    Returns (state, device ms a step, profiled wall ms a step, the device
-    events as (name, ms a step), largest first)."""
+    """Device time and wall time of n_steps steps (step, or step_apic for
+    an ApicState) under torch.profiler. Returns (state, device ms a step,
+    profiled wall ms a step, the device events as (name, ms a step),
+    largest first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from ..solver.step3d import step
-
+    step, _ = _stepper(state)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -158,28 +197,36 @@ def device_time(state, dt, cfg, n_steps: int):
     return state, sum(ms for _, ms in events), wall_ms / n_steps, events
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import subprocess
 
     import fluidsimulation_tpu_torch as ft
 
     if not torch.cuda.is_available():
         raise SystemExit("profiling: torch.cuda.is_available() is false; this needs a CUDA card")
+    ap = argparse.ArgumentParser(prog="python -m fluidsimulation_tpu_torch.utils.profiling")
+    ap.add_argument("--transfer", choices=("flip", "apic"), default="flip",
+                    help="the step to time: PIC/FLIP (step) or APIC (step_apic)")
+    args = ap.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(f"card (nvidia-smi name, power.limit): {card}", flush=True)
-    for n, ppc, dt in ((128, 1, 1.0 / 60.0), (64, 2, 1.0 / 120.0), (128, 2, 1.0 / 120.0)):
+    configs = ((128, 1, 1.0 / 60.0), (64, 2, 1.0 / 120.0), (128, 2, 1.0 / 120.0))
+    init = ft.init_state
+    if args.transfer == "apic":
+        configs, init = configs[:2], ft.init_apic_state
+    for n, ppc, dt in configs:
         cfg = ft.SimConfig(nx=n, ny=n, nz=n, cells_per_meter=float(n), particles_per_cell_axis=ppc)
-        state = ft.init_state(cfg, "cuda:0")
+        state = init(cfg, "cuda:0")
         state, _, _ = stage_times(state, dt, cfg, 2)  # warm-up: steps 1-2
         state, rows, totals = stage_times(state, dt, cfg, 10)
         state, device_ms, wall_ms, events = device_time(state, dt, cfg, 3)
-        print(f"\n{n}^3 ppc {ppc}, {cfg.num_particles} particles, dt={dt!r}, steps 3-12, "
-              f"medians of CUDA-event stage times, {card}")
-        medians = {s: statistics.median(r[s] for r in rows) for s in STAGES}
-        for s in sorted(STAGES, key=medians.get, reverse=True):
+        print(f"\n{args.transfer} {n}^3 ppc {ppc}, {cfg.num_particles} particles, dt={dt!r}, "
+              f"steps 3-12, medians of CUDA-event stage times, {card}")
+        medians = {s: statistics.median(r[s] for r in rows) for s in rows[0]}
+        for s in sorted(medians, key=medians.get, reverse=True):
             print(f"  {s:24s} {medians[s]:10.4f} ms")
         print(f"  {'sum of stages':24s} {sum(medians.values()):10.4f} ms")
         step_ms = statistics.median(totals)

@@ -22,7 +22,10 @@ rule). The combined-key pack (pure copies) must equal its plain version
 bit for bit (int32 views) at shapes past every ragged edge of its tiles, at
 64^3 and at 128^3, also with NaN, +-inf and -0.0 next to its zero halo, and
 two launches must give the same bits. The renderer (plain PyTorch, no hand
-kernel) gives the CPU's 32^3 frame on the card.
+kernel) gives the CPU's 32^3 frame on the card. An APIC step (plain PyTorch
+transfers, atomic sums on the card) stays within phase A's bound of the
+CPU's, and launches the pass, the sweeps and the SOR once each and no other
+kernel.
 """
 
 import numpy as np
@@ -548,3 +551,37 @@ def test_render_on_card_matches_cpu(dev, kw):
     assert card.device.type == "cuda"
     keep = ~raytrace.quirk_pixels(*cam, 80, 60)
     torch.testing.assert_close(card.cpu()[keep], cpu[keep], rtol=0, atol=1e-6)
+
+
+def _apic_close(card, cpu, cfg):
+    """The APIC bound of chip_smoke.py phase A: 1e-4 abs, and for C that
+    bound carried through G2P's lever (2 m x 1e-4): P2G's index_add_ sums
+    by atomics on the card, in another order than the CPU's."""
+    for name in ("pos", "vel", "C", "u", "v", "w", "phi"):
+        atol = 2 * cfg.nx * 1e-4 if name == "C" else 1e-4
+        torch.testing.assert_close(getattr(card, name).cpu(), getattr(cpu, name), rtol=0,
+                                   atol=atol, msg=name)
+
+
+def test_apic_step_on_card_matches_cpu(dev):
+    """A 32^3 APIC step on the card against the same step on the CPU, from
+    a state stepped twice on the CPU."""
+    s = ft.init_apic_state(CFG, "cpu")
+    for _ in range(2):
+        s = ft.step_apic(s, 1.0 / 60.0, CFG)
+    cpu = ft.step_apic(s, 1.0 / 60.0, CFG)
+    card = ft.step_apic(s.to(dev), 1.0 / 60.0, CFG)
+    _apic_close(card, cpu, CFG)
+
+
+def test_apic_step_launches(dev):
+    """One APIC step launches the 27-neighbourhood pass, the sweeps and the
+    SOR once each, and never P2G, the FLIP gather or the pack (its
+    transfers are plain PyTorch)."""
+    s = ft.init_apic_state(CFG, dev)
+    s = ft.step_apic(s, 1.0 / 60.0, CFG)
+    modules = (cuda_seed, cuda_sweep, cuda_sor, cuda_p2g, cuda_g2p, cuda_pack)
+    before = [m.KERNEL.launches for m in modules]
+    ft.step_apic(s, 1.0 / 60.0, CFG)
+    torch.cuda.synchronize()
+    assert [m.KERNEL.launches - b for m, b in zip(modules, before)] == [1, 1, 1, 0, 0, 0]

@@ -68,6 +68,28 @@ def test_demo_runs_and_saves_what_it_stepped(tmp_path, capsys):
         jax_cp.load_state(path, JaxConfig(nx=8, ny=8, nz=8, cells_per_meter=8.0))
 
 
+def test_demo_apic_runs_and_saves_what_it_stepped(tmp_path, capsys):
+    """--transfer apic, two steps at 12^3 (ppc 2, rate 0.5): the saved APIC
+    checkpoint is what two calls of ``step_apic`` at the clamped dt give,
+    and JAX's load_apic_state reads it with its config check."""
+    n = 12
+    cfg = ft.SimConfig(nx=n, ny=n, nz=n, cells_per_meter=float(n))
+    out = tmp_path / "out"
+    assert main(["--grid", str(n), "--transfer", "apic", "--device", "cpu", "--steps", "2",
+                 "--save-state", "--out", str(out)]) == 0
+    assert "2 steps in" in capsys.readouterr().out
+    s = ft.init_apic_state(cfg, "cpu")
+    for _ in range(2):
+        s = ft.step_apic(s, clamp_dt(cfg, 1.0 / 60.0, 0.5), cfg)
+    path = str(out / "final_state.npz")
+    loaded = jax_cp.load_apic_state(path, JaxConfig(nx=n, ny=n, nz=n, cells_per_meter=float(n)))
+    for name in ("pos", "vel", "C", "u", "v", "w", "phi"):
+        np.testing.assert_array_equal(np.asarray(getattr(loaded, name)),
+                                      getattr(s, name).numpy(), err_msg=name)
+    with pytest.raises(ValueError, match="cfg"):
+        jax_cp.load_apic_state(path, JCFG)
+
+
 def test_jax_checkpoint_loads_in_port_bit_exact(tmp_path):
     j = step_jit(jax_init(JCFG), 0.01, JCFG, fast=False)
     path = str(tmp_path / "jax.npz")
@@ -87,7 +109,7 @@ def test_jax_checkpoint_loads_in_port_bit_exact(tmp_path):
         checkpoint.load_state(path, "cpu", ft.SimConfig(nx=8, ny=8, nz=8, cells_per_meter=8.0))
 
 
-@pytest.mark.parametrize("flag", [["--serve", "8000"], ["--two-d"], ["--transfer", "apic"],
+@pytest.mark.parametrize("flag", [["--serve", "8000"], ["--two-d"], ["--two-d", "--transfer", "apic"],
                                   ["--profile"]])
 def test_flags_of_unported_slices_are_refused(flag):
     with pytest.raises(SystemExit) as e:

@@ -37,6 +37,24 @@ def test_stage_times_marks_every_stage_and_keeps_the_step():
     assert after == before
 
 
+def test_stage_times_marks_every_apic_stage_and_keeps_the_step():
+    """An ApicState is stepped by step_apic, with its own stages marked."""
+    from fluidsimulation_tpu_torch.solver import apic
+
+    before = (apic.p2g_apic, apic.g2p_apic, apic.advect_rk3_pic)
+    s0 = ft.init_apic_state(CFG, "cpu")
+    timed, rows, totals = profiling.stage_times(s0, 0.01, CFG, 2)
+    plain = ft.simulate_apic(s0, 0.01, CFG, 2)
+    for name in ("pos", "vel", "C", "u", "v", "w", "phi"):
+        torch.testing.assert_close(getattr(timed, name), getattr(plain, name), rtol=0, atol=0)
+    assert "APIC P2G" in profiling.APIC_STAGES and "FLIP" not in profiling.APIC_STAGES
+    for row, total in zip(rows, totals):
+        assert list(row) == profiling.APIC_STAGES
+        assert all(row[s] > 0 for s in profiling.APIC_STAGES)
+        assert sum(row.values()) <= total
+    assert (apic.p2g_apic, apic.g2p_apic, apic.advect_rk3_pic) == before
+
+
 def test_hooked_sees_every_demo_step_and_restores(tmp_path):
     from fluidsimulation_tpu_torch.app import demo
 
