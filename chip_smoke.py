@@ -6,9 +6,10 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the six hand-written CUDA kernels from csrc/, compares each with
-its plain PyTorch version on the card, and drives five paths of the port,
-each with the launch counts set to 0 just before it and read just after,
-then renders 800x600 frames of the level sets of the first two:
+its plain PyTorch version on the card, and drives five 3D paths of the
+port and the 2D family's, each with the launch counts set to 0 just before
+it and read just after, and renders 800x600 frames of the level sets of
+the first two:
 
   * the 128^3 dam break (1,000,188 particles, ppc 1, dt = 1/60) through
     ``step``, 20 steps;
@@ -17,7 +18,11 @@ then renders 800x600 frames of the level sets of the first two:
   * the physical configuration of bench.py: 128^3, ppc 2, 8,001,504
     particles, dt = 1/120, 10 steps;
   * the APIC family (solver/apic.py::step_apic): the 128^3 dam break at
-    ppc 1, 12 steps, and the demo at its defaults with --transfer apic.
+    ppc 1, 12 steps, and the demo at its defaults with --transfer apic;
+  * the 2D family (solver/step2d.py::step2d, solver/apic2d.py::
+    step_apic2d) through the demo's --two-d loop: the reference's 64^2
+    (7,688 particles), 60 steps with frames, and 512^2 (520,200
+    particles), 6 steps, each with --transfer flip and apic.
 
 Every step of every path must launch each kernel the expected number of
 times (the 24 sweeps are one C call, one launch count); the combined-key
@@ -74,8 +79,22 @@ Phases, each printing before the next:
      overstep 1.5 once, and at both an untiled frame (band_rows=0) once,
      bit-equal to the tiled one; then the demo at 64^3 with --render-every
      writing PPM frames
-  8  {"kernels": [...], "apic": {...}, "render": {...}} and then
-     {"ok": true, "device": {...}}
+  D  the 2D family: D1, a 32^2 state stepped 3 times on the card vs the
+     same steps on the CPU, step2d and step_apic2d (1e-4 abs, C 2 m x
+     1e-4), then the SOR kernel vs its plain version on the last step's
+     (nx, ny, 1) inputs bit for bit, a second launch bit-equal and its
+     counters, and the NaN rule (one NaN position, one step of each on the
+     card: only that particle's rows non-finite, grids finite, the rest
+     within the bound of the CPU step); D2, the demo entry point
+     app.demo.main(["--two-d", ...]) at 64^2, 60 steps at rate 0.5 with
+     --render-every 10, FLIP and APIC: median step by CUDA events, the SOR
+     launched once a step and no other kernel, all fields finite, the
+     frame2d_*.ppm frames written and decoded; D3, the same at --grid 512
+     for 6 steps: median of 5 after 1 warm-up, peak device memory, the SOR
+     vs its plain version on the last step's inputs (timed), all fields
+     finite
+  8  {"kernels": [...], "apic": {...}, "render": {...}, "two_d": {...}} and
+     then {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -117,6 +136,17 @@ FIELDS = ("pos", "vel", "u", "v", "w", "phi")
 APIC_FIELDS = ("pos", "vel", "C", "u", "v", "w", "phi")
 APIC_STEPS = 10  # timed APIC steps at 128^3, after N_WARMUP
 APIC_ATOL = 1e-4  # phase A's card-vs-CPU bound (apic_bound)
+
+TWO_D_DT = 1.0 / 120.0  # the 2D demo's dt: 1/60 at rate 0.5
+TWO_D_SMALL = 32
+TWO_D_DEMO_PARTICLES = 7_688  # the demo's 64^2 (BASELINE.json config 1)
+TWO_D_DEMO_STEPS = 60
+TWO_D_RENDER_EVERY = 10
+TWO_D_BIG = 512
+TWO_D_BIG_PARTICLES = 520_200
+TWO_D_BIG_STEPS = 6  # 1 warm-up and 5 timed
+TWO_D_WARMUP = 1
+BAD = 5  # the particle that gets a NaN position (phases 4 and D1)
 
 # H100 SXM data-sheet peaks at 700 W: device memory rate, and float32
 # outside the tensor cores (every kernel here is float32 arithmetic).
@@ -184,6 +214,7 @@ def capture(store: dict):
         ("ops.levelset", "sweep_closest", "sweep"),
         ("ops.p2g", "p2g_accumulate", "p2g"),
         ("ops.project", "sor_pressure", "sor"),
+        ("solver.step2d", "sor_pressure", "sor"),
         ("ops.flip", "g2p_flip", "g2p"),
     ], record)
 
@@ -294,8 +325,11 @@ def bound(key: str, args) -> tuple[float, str]:
         and writes the (nx*ny*(nz-1), 64) table.
     """
     cfg = args[0]
-    cells = cfg.nx * cfg.ny * cfg.nz
-    faces = sum(math.prod(s) for s in (cfg.u_shape(), cfg.v_shape(), cfg.w_shape()))
+    # The grid from the arguments' level set, so that the 2D solve's
+    # (nx, ny, 1) counts too.
+    cells = args[1].numel() if key == "sor" else cfg.nx * cfg.ny * cfg.nz
+    if key in ("p2g", "p2g2", "g2p", "pack"):
+        faces = sum(math.prod(s) for s in (cfg.u_shape(), cfg.v_shape(), cfg.w_shape()))
     if key == "seed":
         nbytes, ops = (12 + 4 + 12) * cells, 27 * 11 * cells
     elif key == "sweep":
@@ -592,7 +626,7 @@ def nan_phase(cfg, dev) -> None:
     unhealthy, exactly that particle non-finite, and u, v, w, phi finite."""
     import fluidsimulation_tpu_torch as ft
 
-    bad = 5
+    bad = BAD
     state = ft.init_state(cfg, dev)
     state.pos[bad, 0] = float("nan")
     check = LaunchCheck("phase 4 (NaN rule)")
@@ -751,8 +785,9 @@ def apic_launches() -> dict:
 def apic_bound(name: str, cfg) -> float:
     """Phase A's card-vs-CPU bound: phase 4's 1e-4 abs, and for C that
     bound carried through G2P's lever, C = 4 m^2 sum w v (x_i - x_p) with
-    sum w |x_i - x_p| about half a cell: 2 m x 1e-4."""
-    return 2 * max(cfg.nx, cfg.ny, cfg.nz) * APIC_ATOL if name == "C" else APIC_ATOL
+    sum w |x_i - x_p| about half a cell: 2 m x 1e-4 (m = nx: the grids
+    here are cubes and squares)."""
+    return 2 * cfg.nx * APIC_ATOL if name == "C" else APIC_ATOL
 
 
 def run_apic(table, results, card) -> dict:
@@ -828,6 +863,233 @@ def run_apic(table, results, card) -> dict:
     label = "demo 64^3 ppc 2"
     out["step_ms"][label], out["peak_bytes"][label] = demo_ms, demo_peak
     out["launches"][label] = demo_launches
+    return out
+
+
+def two_d_launches() -> dict:
+    """Kernel module -> launches in one 2D step: the SOR once and no other
+    kernel (the 2D stages besides the solve are plain PyTorch)."""
+    from fluidsimulation_tpu_torch.ops import cuda_sor
+
+    return {m: int(m is cuda_sor) for m in per_step_launches()}
+
+
+def two_d_family(apic: bool):
+    """(init, step, its name in app.demo, fields, label) of a 2D family."""
+    import fluidsimulation_tpu_torch as ft
+
+    if apic:
+        return (ft.init_apic_state2d, ft.step_apic2d, "step_apic2d",
+                ("pos", "vel", "C", "u", "v", "phi"), "APIC")
+    return ft.init_state2d, ft.step2d, "step2d", ("pos", "vel", "u", "v", "phi"), "FLIP"
+
+
+def nonfinite_rows(t) -> list:
+    return (~t.reshape(t.shape[0], -1).isfinite().all(1)).nonzero().flatten().tolist()
+
+
+def check_sor_2d(table, results, captured, label, cfg) -> None:
+    """The SOR kernel on a 2D step's (nx, ny, 1) inputs: bit for bit its
+    plain version (check_kernels), a second launch bit-equal, and its
+    counters: every fluid cell listed in its colour, 2 x 120 - 1 barriers."""
+    from fluidsimulation_tpu_torch.ops import cuda_sor
+
+    args = captured["sor"]
+    if tuple(args[1].shape) != (cfg.nx, cfg.ny, 1):
+        raise AssertionError(f"{label}: the SOR got phi of shape {tuple(args[1].shape)}")
+    check_kernels(table, ("sor",), captured, label, results)
+    p, counters = cuda_sor.sor_launch(*args)
+    if not torch.equal(p, cuda_sor.sor_pressure(*args)):
+        raise AssertionError(f"{label}: two SOR launches on the same inputs differ")
+    n0, n1, barriers = counters.tolist()
+    fluid = int((args[1] < 0).sum())
+    if n0 + n1 != fluid or barriers != 2 * cfg.sor_iterations - 1:
+        raise AssertionError(f"{label}: SOR counters {counters.tolist()}, expected {fluid} fluid "
+                             f"cells and {2 * cfg.sor_iterations - 1} barriers")
+    say(f"{label}: SOR on ({cfg.nx}, {cfg.ny}, 1): two launches bit-equal; fluid cells {n0} of "
+        f"colour 0, {n1} of colour 1; {barriers} grid barriers")
+
+
+def two_d_card_vs_cpu(table, results, apic: bool) -> dict:
+    """D1 for one family: a 32^2 state stepped 3 times on the card and on
+    the CPU; the SOR on the last card step's inputs; then the NaN rule: one
+    NaN position, one step on the card and on the CPU."""
+    import fluidsimulation_tpu_torch as ft
+
+    init, step, _, fields, name = two_d_family(apic)
+    cfg = ft.SimConfig2D(nx=TWO_D_SMALL, ny=TWO_D_SMALL, cells_per_meter=float(TWO_D_SMALL))
+    label = f"phase D1 ({name} {TWO_D_SMALL}^2)"
+    cpu_state = init(cfg, "cpu")
+    card_state = cpu_state.to(DEVICE)
+    check = LaunchCheck(label, two_d_launches())
+    captured: dict = {}
+    for _ in range(3):
+        cpu_state = step(cpu_state, TWO_D_DT, cfg)
+        with capture(captured):
+            card_state = check.step(lambda: step(card_state, TWO_D_DT, cfg))
+    torch.cuda.synchronize()
+    check.totals()
+    errs = {}
+    for f in fields:
+        d = float((getattr(card_state, f).cpu() - getattr(cpu_state, f)).abs().max())
+        errs[f] = d
+        limit = apic_bound(f, cfg)
+        say(f"{label}: 3 steps, card vs CPU, {f}: max abs diff {d!r} (limit {limit!r})")
+        if not d <= limit:
+            raise AssertionError(f"{label}: {f} differs by {d} > {limit}")
+    check_sor_2d(table, results, captured, label, cfg)
+
+    bad = init(cfg, "cpu")
+    bad.pos[BAD, 0] = float("nan")
+    cpu_next = step(bad, TWO_D_DT, cfg)
+    card_next = LaunchCheck(f"{label} NaN", two_d_launches()).step(
+        lambda: step(bad.to(DEVICE), TWO_D_DT, cfg))
+    torch.cuda.synchronize()
+    # APIC's spline weights of a NaN distance are 0: its vel stays finite.
+    expect = {"pos": [BAD], "vel": [] if apic else [BAD], "C": [BAD]}
+    keep = torch.arange(cfg.num_particles) != BAD
+    for f in fields:
+        got, want = getattr(card_next, f).cpu(), getattr(cpu_next, f)
+        if f in expect:
+            rows = nonfinite_rows(got)
+            if rows != expect[f] or nonfinite_rows(want) != expect[f]:
+                raise AssertionError(f"{label} NaN: non-finite {f} rows {rows[:10]} (CPU "
+                                     f"{nonfinite_rows(want)[:10]}), expected {expect[f]}")
+            got, want = got[keep], want[keep]
+        elif not bool(got.isfinite().all()):
+            raise AssertionError(f"{label} NaN: non-finite values in {f}")
+        d = float((got - want).abs().max())
+        if not d <= apic_bound(f, cfg):
+            raise AssertionError(f"{label} NaN: {f} differs from the CPU's by {d}")
+    say(f"{label}: NaN rule: particle {BAD} with a NaN position, one step on the card: no raise, "
+        f"only its rows non-finite ({', '.join(f for f in expect if f in fields and expect[f])}), "
+        f"grids and phi finite, the rest within the bound of the CPU step")
+    return errs
+
+
+def decode_ppm(path: Path, width: int, height: int):
+    """A binary PPM's pixels as an (H, W, 3) uint8 array; raises on a bad
+    header or size."""
+    import numpy as np
+
+    data = path.read_bytes()
+    header = f"P6\n{width} {height}\n255\n".encode()
+    if not data.startswith(header) or len(data) != len(header) + width * height * 3:
+        raise AssertionError(f"{path.name}: bad header or size")
+    return np.frombuffer(data[len(header):], np.uint8).reshape(height, width, 3)
+
+
+def two_d_demo(label, argv, apic, n_particles, n_steps, warmup, frames, card) -> dict:
+    """app.demo.main(["--two-d", *argv]) with each step through the launch
+    check (the SOR once, no other kernel), CUDA-event timed, the last
+    step's kernel arguments captured; every field of the final state
+    finite; the frames ``frames`` written and decoded (checkerboard greys
+    and the particle blue only, blue present). Returns the path's
+    numbers."""
+    import numpy as np
+
+    from fluidsimulation_tpu_torch.app import demo
+    from fluidsimulation_tpu_torch.utils.profiling import hooked
+
+    _, _, step_attr, _, name = two_d_family(apic)
+    check = LaunchCheck(label, two_d_launches())
+    times, seen, captured = [], {}, {}
+
+    def counted(_, orig, args):
+        state, dt, cfg = args
+        if check.steps == 0 and state.pos.shape[0] != n_particles:
+            raise AssertionError(f"{label}: expected {n_particles} particles, "
+                                 f"got {state.pos.shape[0]}")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        if check.steps == n_steps - 1:
+            with capture(captured):
+                out = check.step(lambda: orig(state, dt, cfg))
+        else:
+            out = check.step(lambda: orig(state, dt, cfg))
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        seen["state"], seen["cfg"] = out, cfg
+        return out
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(dir=build) as out_dir:
+        with hooked([("app.demo", step_attr, "step")], counted):
+            rc = demo.main(["--two-d", "--device", "cuda", "--transfer", name.lower(),
+                            "--steps", str(n_steps), *argv, "--out", out_dir])
+        peak = torch.cuda.max_memory_allocated()
+        if rc != 0:
+            raise AssertionError(f"{label}: main returned {rc}")
+        if check.steps != n_steps:
+            raise AssertionError(f"{label}: ran {check.steps} steps, expected {n_steps}")
+        launches = check.totals()
+        written = sorted(p.name for p in Path(out_dir).iterdir())
+        if written != frames:
+            raise AssertionError(f"{label}: wrote {written}, expected {frames}")
+        blue = []
+        allowed = {(89, 89, 89), (166, 166, 166), (51, 102, 255)}
+        for f in frames:
+            px = decode_ppm(Path(out_dir) / f, WIDTH, HEIGHT)
+            colours = {tuple(c) for c in np.unique(px.reshape(-1, 3), axis=0).tolist()}
+            n_blue = int((px == (51, 102, 255)).all(-1).sum())
+            if not colours <= allowed or n_blue == 0:
+                raise AssertionError(f"{label}: {f} has colours {sorted(colours)[:5]}, "
+                                     f"{n_blue} particle pixels")
+            blue.append(n_blue)
+    state, cfg = seen["state"], seen["cfg"]
+    check_finite(label, state)
+    step_ms = statistics.median(times[warmup:])
+    say(f"{label}: {n_steps} steps of {cfg.nx}^2, {n_particles} particles; all fields finite; "
+        f"frames {frames} decoded, particle pixels {blue}")
+    say(f"{label}: median step {step_ms!r} ms over {len(times) - warmup} steps after {warmup} "
+        f"warm-up (min {min(times[warmup:])!r}, max {max(times[warmup:])!r}); peak device "
+        f"memory {peak} B ({peak / 2**30:.3f} GiB) on {card}")
+    return {"step_ms": step_ms, "step_times": times, "peak_bytes": peak, "launches": launches,
+            "frames": len(frames), "captured": captured, "cfg": cfg}
+
+
+def time_sor_2d(label, captured, card) -> dict:
+    """The SOR kernel on a 2D path's last inputs: device time under
+    torch.profiler and by events, its plain version, its bound."""
+    from fluidsimulation_tpu_torch.ops import cuda_sor
+
+    args = captured["sor"]
+    ms = device_ms(lambda: cuda_sor.sor_pressure(*args), 20)
+    wall_ms = cuda_ms(lambda: cuda_sor.sor_pressure(*args), 20)
+    plain_ms = cuda_ms(lambda: cuda_sor.sor_pressure_plain(*args), 5)
+    b_ms, b_by = bound("sor", args)
+    say(f"{label}: SOR kernel {ms!r} ms of device time ({wall_ms!r} ms by events, back to back), "
+        f"plain {plain_ms!r} ms, bound {b_ms!r} ms ({b_by}) on {card}")
+    return {"ms": ms, "events_ms": wall_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def two_d_phase(table, results, card) -> dict:
+    """Phase D: the 2D family on the card (D1, D2, D3 of the docstring)."""
+    out: dict = {"card_vs_cpu_32^2": {}, "step_ms": {}, "step_times": {}, "peak_bytes": {},
+                 "launches": {}, "frames": {}, "sor": {}}
+    for apic in (False, True):
+        out["card_vs_cpu_32^2"][two_d_family(apic)[4]] = two_d_card_vs_cpu(table, results, apic)
+    demo_frames = [f"frame2d_{i:05d}.ppm" for i in range(0, TWO_D_DEMO_STEPS, TWO_D_RENDER_EVERY)]
+    for apic in (False, True):
+        name = two_d_family(apic)[4]
+        for key, label, argv, n, steps, warmup, frames in (
+            (f"demo 64^2 {name}", f"phase D2 (demo 64^2 {name})",
+             ["--render-every", str(TWO_D_RENDER_EVERY)], TWO_D_DEMO_PARTICLES,
+             TWO_D_DEMO_STEPS, N_WARMUP, demo_frames),
+            (f"{TWO_D_BIG}^2 {name}", f"phase D3 ({TWO_D_BIG}^2 {name})",
+             ["--grid", str(TWO_D_BIG)], TWO_D_BIG_PARTICLES, TWO_D_BIG_STEPS, TWO_D_WARMUP, []),
+        ):
+            run = two_d_demo(label, argv, apic, n, steps, warmup, frames, card)
+            check_sor_2d(table, results, run["captured"], label, run["cfg"])
+            out["sor"][key] = time_sor_2d(label, run["captured"], card)
+            for field in ("step_ms", "step_times", "peak_bytes", "launches", "frames"):
+                out[field][key] = run[field]
     return out
 
 
@@ -1119,6 +1381,8 @@ def main() -> int:
     apic = run_apic(table, results, card)
     torch.cuda.empty_cache()
     render = render_phase(dev, main_phi, step_ms, demo_phi, demo_ms, card)
+    torch.cuda.empty_cache()
+    two_d = two_d_phase(table, results, card)
 
     # Phase 8.
     symbol = {key: k["module"].KERNEL.symbol for key, k in table.items()}
@@ -1151,6 +1415,7 @@ def main() -> int:
         "peak_bytes_128^3_ppc2": phys_peak,
         "apic": apic,
         "render": render,
+        "two_d": two_d,
     }))
     say(json.dumps({
         "ok": True,

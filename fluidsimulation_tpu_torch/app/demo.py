@@ -1,6 +1,6 @@
 """CLI demo: the dam break of FluidSimDemo (FluidSimDemo.cpp) with its
-raytraced frames. Port of the 3D loop of fluidsimulation_tpu/app/demo.py,
-PIC/FLIP and APIC.
+raytraced frames. Port of fluidsimulation_tpu/app/demo.py, its 3D loop and
+its 2D loop (--two-d), PIC/FLIP and APIC.
 
 Runs the simulation and the renderer on the card by default (``--device
 cuda``); pass ``--device cpu`` to run the plain PyTorch versions of the
@@ -26,6 +26,14 @@ OUT/final_state.npz in the JAX package's checkpoint format. --transfer apic
 steps the APIC family (solver/apic.py) in place of PIC/FLIP, and saves an
 APIC checkpoint.
 
+--two-d runs the 2D solver (solver/step2d.py; with --transfer apic
+solver/apic2d.py) on a --grid x --grid grid, as the archival 2D demo
+FluidSimDemoOld.cpp does: the dam break with curl-noise initial velocities,
+dt = clip(--dt x --rate, 0, max_dt), frames of particle splats over a
+checkerboard (render/debug.py) to OUT/frame2d_NNNNN.ppm every
+--render-every steps. As the JAX package's 2D loop, it reads no stdin
+commands, checks no state and saves no state.
+
 Usage:
   python -m fluidsimulation_tpu_torch --grid 64 --steps 120 \
       --render-every 2 --width 800 --height 600 --out out/
@@ -42,11 +50,14 @@ import time
 import numpy as np
 import torch
 
-from ..core.config import SimConfig
-from ..core.state import init_state
+from ..core.config import SimConfig, SimConfig2D
+from ..core.state import init_apic_state2d, init_state, init_state2d
 from ..render.camera import OrbitCamera
+from ..render.debug import splat_particles_2d
 from ..render.raytrace import render_frame
 from ..solver.apic import init_apic_state, step_apic
+from ..solver.apic2d import step_apic2d
+from ..solver.step2d import step2d
 from ..solver.step3d import clamp_dt, step
 from ..utils.checkpoint import save_apic_state, save_state
 from ..utils.metrics import Meter, check_state
@@ -73,7 +84,7 @@ def _poll_stdin() -> str | None:
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m fluidsimulation_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--grid", type=int, default=64, help="cubic grid size (demo: 64)")
+    ap.add_argument("--grid", type=int, default=64, help="grid cells per axis (demo: 64; 2D too)")
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--dt", type=float, default=1.0 / 60.0, help="frame dt before rate clamp")
     ap.add_argument("--rate", type=float, default=0.5,
@@ -104,6 +115,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="transfer model: the reference's hybrid PIC/FLIP (default) or the "
                     "APIC extension (affine particle-in-cell, quadratic B-splines; "
                     "solver/apic.py; not in the reference)")
+    ap.add_argument("--two-d", action="store_true",
+                    help="run the 2D solver (FluidSim / FluidSimDemoOld equivalent), rendering "
+                    "particle splats over a checkerboard")
     return ap.parse_args(argv)
 
 
@@ -115,6 +129,8 @@ def main(argv=None) -> int:
             f"--device {args.device}: torch.cuda.is_available() is false; pass --device cpu "
             "to run on the CPU"
         )
+    if args.two_d:
+        return _main_2d(args, dev)
     cfg = SimConfig(
         nx=args.grid, ny=args.grid, nz=args.grid,
         cells_per_meter=float(args.grid),
@@ -181,6 +197,33 @@ def main(argv=None) -> int:
 
     if args.save_state:
         _save(os.path.join(args.out, "final_state.npz"), state, cfg)
+    print(meter.summary())
+    return 0
+
+
+def _main_2d(args, dev) -> int:
+    """The 2D loop (fluidsimulation_tpu/app/demo.py::_main_2d)."""
+    cfg = SimConfig2D(nx=args.grid, ny=args.grid, cells_per_meter=float(args.grid))
+    os.makedirs(args.out, exist_ok=True)
+    print(f"2D grid {cfg.nx}x{cfg.ny}, {cfg.num_particles} particles on {dev}")
+    if args.transfer == "apic":
+        init, step_fn = init_apic_state2d, step_apic2d
+    else:
+        init, step_fn = init_state2d, step2d
+    state = init(cfg, dev)
+    meter = Meter(cfg.num_particles)
+    for i in range(args.steps):
+        dt = float(np.clip(args.dt * args.rate, 0.0, cfg.max_dt))
+        t0 = time.perf_counter()
+        state = step_fn(state, dt, cfg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        meter.tick()
+        if args.render_every and i % args.render_every == 0:
+            img = splat_particles_2d(state.pos, args.width, args.height)
+            write_ppm(os.path.join(args.out, f"frame2d_{i:05d}.ppm"), img.cpu().numpy())
+        if i % 10 == 0:
+            print(f"step {i}: {1000 * (time.perf_counter() - t0):.1f} ms ({meter.summary()})")
     print(meter.summary())
     return 0
 

@@ -1,7 +1,9 @@
-"""MAC-grid trilinear interpolation with the CPU solver's semantics.
+"""MAC-grid trilinear and bilinear interpolation with the CPU solvers'
+semantics.
 
 Port of fluidsimulation_tpu/core/interp.py (FluidSim3::InterpolateMACCell,
-Simulation3D.h:55-123), including the top-edge index decrements of
+Simulation3D.h:55-123, and FluidSim::InterpolateMACCell,
+Simulation2D.h:59-100), including the top-edge index decrements of
 ``_split_normal`` and ``_split_extended``. Positions are in cell units.
 Every lerp is a separate multiply and add, the same rounding as the G2P
 kernel (csrc/g2p.cu, compiled with -fmad=false).
@@ -79,3 +81,26 @@ def interp_mac3_vec(u, v, w, pos_cells):
     """interp_mac3 on stacked (..., 3) positions; returns (..., 3)."""
     vals = interp_mac3(u, v, w, pos_cells[..., 0], pos_cells[..., 1], pos_cells[..., 2])
     return torch.stack(vals, dim=-1)
+
+
+def _bilerp(g, i0, j0, fi, fj):
+    sy = g.shape[1]
+    flat = g.reshape(-1)
+    base = i0 * sy + j0
+
+    def at(off):
+        return flat[base + off]
+
+    return _lerp(_lerp(at(0), at(sy), fi), _lerp(at(1), at(sy + 1), fi), fj)
+
+
+def interp_mac2(u, v, pi, pj):
+    """Interpolate the 2D MAC grids u: (nx+1, ny), v: (nx, ny+1) at
+    cell-unit positions. Returns (uval, vval), each shaped like pi."""
+    nx = u.shape[0] - 1
+    ny = v.shape[1] - 1
+    iI, fI = _split_normal(pi, nx)
+    iJ, fJ = _split_normal(pj, ny)
+    iEI, fEI = _split_extended(pi, nx)
+    iEJ, fEJ = _split_extended(pj, ny)
+    return _bilerp(u, iEI, iJ, fEI, fJ), _bilerp(v, iI, iEJ, fI, fEJ)

@@ -30,15 +30,12 @@ import math
 import torch
 
 from ..core.config import SimConfig
-from .common import cell_scale, shift
+from .common import cell_scale, index_of, shift
 
 # Validity threshold for face weights: quadratic B-spline weights are
 # smaller than hats (at most 0.75 per axis); faces a particle meaningfully
 # touches still accumulate far more than 1e-4.
 APIC_WEIGHT_THRESH = 1e-4
-# Base node of an infinite coordinate: outside every grid, and its nodes'
-# indices stay far from overflow.
-_FAR_NODE = float(2**30)
 
 
 def _quad_spline(d):
@@ -54,8 +51,7 @@ def _quad_spline(d):
 def _axis_nodes(t, hi: int, m_ax):
     """The nodes base + 0, 1, 2 along one axis of coordinates t (node
     frame): (index, in range, spline weight, lever node - particle in m)."""
-    base = torch.nan_to_num(torch.floor(t - 0.5), nan=0.0, posinf=_FAR_NODE,
-                            neginf=-_FAR_NODE).long()
+    base = index_of(torch.floor(t - 0.5))
     out = []
     for off in range(3):
         idx = base + off

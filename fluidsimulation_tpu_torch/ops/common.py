@@ -1,4 +1,4 @@
-"""Shared grid helpers for the 3D op set."""
+"""Shared grid helpers for the 3D and 2D op sets."""
 
 from __future__ import annotations
 
@@ -20,6 +20,19 @@ def shift(a, axis: int, s: int, fill):
     else:
         out.narrow(axis, -s, n + s).copy_(a.narrow(axis, 0, n + s))
     return out
+
+
+# Index of an infinite coordinate (index_of): outside every grid, and the
+# indices of its neighbouring nodes stay far from overflow.
+FAR_INDEX = float(2**30)
+
+
+def index_of(c):
+    """Floored float coordinates c as int64 indices, NaN as JAX's
+    float-to-int conversion gives it (0), +-inf as +-FAR_INDEX. A NaN
+    particle then takes in-range nodes whose weights carry its NaN, as in
+    JAX; torch's own cast would give -2^63."""
+    return torch.nan_to_num(c, nan=0.0, posinf=FAR_INDEX, neginf=-FAR_INDEX).long()
 
 
 def far_cell(cfg) -> float:

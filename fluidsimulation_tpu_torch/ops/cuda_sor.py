@@ -10,6 +10,11 @@ exact Gauss-Seidel (ops/project.py:74-123 of the JAX package). A CPU tensor
 takes the plain version; a CUDA tensor launches the kernel, one C call a
 solve: a list-building launch, then one cooperative launch that runs every
 half-update with a grid barrier between them.
+
+The grid's shape comes from the tensors, omega and the iteration count from
+the config, so the 2D projection (solver/step2d.py) runs the same solve on
+(nx, ny, 1) views with SimConfig2D's omega and 120 iterations: its z
+neighbours lie outside the grid and subtract an exact 0.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..core.config import SimConfig
+from ..core.config import SimConfig, SimConfig2D
 from .common import shift
 
 KERNEL = _build.Kernel(
@@ -27,15 +32,16 @@ KERNEL = _build.Kernel(
 )
 
 
-def relaxation(cfg: SimConfig) -> tuple[np.float32, np.float32]:
-    """(omega, 1 - omega) as float32, omega = 2 - 3.16343/nx
-    (Simulation.cpp:909); both forms use these exact values."""
+def relaxation(cfg: SimConfig | SimConfig2D) -> tuple[np.float32, np.float32]:
+    """(omega, 1 - omega) as float32, omega = 2 - 3.16343/nx in 3D
+    (Simulation.cpp:909), 2 - 3.22133/nx in 2D (Simulation2D.cpp:699);
+    both forms use these exact values."""
     omega = np.float32(cfg.omega)
     return omega, np.float32(1.0 - omega)
 
 
-def sor_pressure_plain(cfg: SimConfig, phi, diag, b):
-    nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
+def sor_pressure_plain(cfg: SimConfig | SimConfig2D, phi, diag, b):
+    nx, ny, nz = phi.shape
     omega, one_minus_omega = relaxation(cfg)
     fluid = phi < 0.0
     dev = phi.device
@@ -64,7 +70,7 @@ def sor_pressure_plain(cfg: SimConfig, phi, diag, b):
     return p
 
 
-def sor_pressure(cfg: SimConfig, phi, diag, b):
+def sor_pressure(cfg: SimConfig | SimConfig2D, phi, diag, b):
     """Checkerboard SOR from p = 0 (gpProjectIteration{1,2}.hlsl x100).
 
     phi, diag, b: (nx, ny, nz) float32. Returns p (nx, ny, nz)."""
@@ -73,11 +79,13 @@ def sor_pressure(cfg: SimConfig, phi, diag, b):
     return sor_launch(cfg, phi, diag, b)[0]
 
 
-def sor_launch(cfg: SimConfig, phi, diag, b):
+def sor_launch(cfg: SimConfig | SimConfig2D, phi, diag, b):
     """The kernel's solve (CUDA tensors only). Returns p and the kernel's
     int32 counters: the fluid cells of colour 0 and of colour 1, and the
     grid barriers it ran (2 x iterations - 1)."""
-    nx, ny, nz = shape = cfg.grid_shape()
+    if phi.dim() != 3:
+        raise ValueError(f"phi: expected (nx, ny, nz), got shape {tuple(phi.shape)}")
+    nx, ny, nz = shape = tuple(phi.shape)
     half = nx * ny * ((nz + 1) // 2)  # room for every cell of one colour
     if 2 * half >= 2**31:
         raise ValueError(f"grid {shape}: the SOR kernel indexes cells with 32-bit ints")

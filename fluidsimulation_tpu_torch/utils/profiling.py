@@ -13,20 +13,23 @@ that time over the median step time without the profiler; the profiler's
 own host cost stretches the profiled steps, so their wall time is printed
 beside it but is not the share's denominator.
 
-The APIC step (solver/apic.py::step_apic) is timed the same way, through
-its own sites (APIC_SITES): an ApicState given to stage_times or
-device_time is stepped by step_apic.
+The APIC step (solver/apic.py::step_apic) and the 2D steps
+(solver/step2d.py::step2d, solver/apic2d.py::step_apic2d) are timed the
+same way, through their own sites: stage_times and device_time step a
+state by its family's step.
 
 Run on the card from the repository root:
 
-    python -m fluidsimulation_tpu_torch.utils.profiling [--transfer apic]
+    python -m fluidsimulation_tpu_torch.utils.profiling [--transfer apic] [--two-d]
 
 It prints, for the three configurations chip_smoke.py drives (128^3 ppc 1,
 the demo's 64^3 ppc 2, 128^3 ppc 2; with --transfer apic the APIC step at
-the first two), the median time of each stage over steps 3-12 from the
-dam-break start, the median step, and the device time of steps 13-15, the
-busy share and the largest device events (kernels by name, the hand
-kernels among them) a step.
+the first two; with --two-d the 2D step at the 2D demo's 64^2 and at
+512^2), the median time of each stage over steps 3-12 from the dam-break
+start, the median step, and the device time of steps 13-15, the busy share,
+the device events a step (each a launch: the step's launch count) and the
+largest device events (kernels by name, the hand kernels among them) a
+step.
 """
 
 from __future__ import annotations
@@ -76,6 +79,33 @@ APIC_SITES = [
     ("solver.apic", "blur_phi", "blur"),
 ]
 
+# The 2D steps' sites: the level set's seed and sweeps and the projection's
+# parts are looked up in solver/step2d.py, the stages step_apic2d calls in
+# solver/apic2d.py.
+SITES_2D = [
+    ("solver.step2d", "advect_rk3", "advect (RK3)"),
+    ("solver.step2d", "seed_closest", "seed (own cell, 3x3)"),
+    ("solver.step2d", "_sweep_axis2", "8 sweeps"),
+    ("solver.step2d", "transfer_to_grid", "P2G"),
+    ("solver.step2d", "extrapolate_full", "extrapolate"),
+    ("solver.step2d", "add_gravity", "gravity"),
+    ("solver.step2d", "compute_rhs2d", "RHS"),
+    ("solver.step2d", "compute_diag2d", "diagonal"),
+    ("solver.step2d", "sor_pressure", "SOR"),
+    ("solver.step2d", "apply_pressure2d", "apply pressure"),
+    ("solver.step2d", "flip_update2d", "FLIP"),
+]
+APIC2D_SITES = [
+    ("solver.apic2d", "advect_rk3", "advect (RK3)"),
+    *(site for site in SITES_2D if site[1] in ("seed_closest", "_sweep_axis2")),
+    ("solver.apic2d", "p2g_apic2d", "APIC P2G"),
+    ("solver.apic2d", "extrapolate_full", "extrapolate"),
+    ("solver.apic2d", "add_gravity", "gravity"),
+    *(site for site in SITES_2D if site[1] in ("compute_rhs2d", "compute_diag2d",
+                                                "sor_pressure", "apply_pressure2d")),
+    ("solver.apic2d", "g2p_apic2d", "APIC G2P"),
+]
+
 
 def stages_of(sites) -> list[str]:
     """The stage labels of ``sites``, in step order, each once."""
@@ -84,15 +114,23 @@ def stages_of(sites) -> list[str]:
 
 STAGES = stages_of(SITES)
 APIC_STAGES = stages_of(APIC_SITES)
+STAGES_2D = stages_of(SITES_2D)
+APIC2D_STAGES = stages_of(APIC2D_SITES)
 
 
 def _stepper(state):
     """(step function, its sites) for the state's family."""
-    from ..core.state import ApicState
+    from ..core.state import ApicState, ApicState2D, SimState2D
     from ..solver.apic import step_apic
+    from ..solver.apic2d import step_apic2d
+    from ..solver.step2d import step2d
     from ..solver.step3d import step
 
-    return (step_apic, APIC_SITES) if isinstance(state, ApicState) else (step, SITES)
+    for cls, found in ((ApicState, (step_apic, APIC_SITES)), (SimState2D, (step2d, SITES_2D)),
+                       (ApicState2D, (step_apic2d, APIC2D_SITES))):
+        if isinstance(state, cls):
+            return found
+    return step, SITES
 
 
 class _Clock:
@@ -174,10 +212,10 @@ def stage_times(state, dt, cfg, n_steps: int):
 
 
 def device_time(state, dt, cfg, n_steps: int):
-    """Device time and wall time of n_steps steps (step, or step_apic for
-    an ApicState) under torch.profiler. Returns (state, device ms a step,
-    profiled wall ms a step, the device events as (name, ms a step),
-    largest first)."""
+    """Device time and wall time of n_steps steps (of the state's family)
+    under torch.profiler. Returns (state, device ms a step, profiled wall
+    ms a step, the device events as (name, ms a step), largest first, and
+    the device events a step: kernels, copies and fills, each one launch)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -191,10 +229,11 @@ def device_time(state, dt, cfg, n_steps: int):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # Device-side events only: a CPU op's own device time repeats the time
     # of the kernels it launched, which appear again as device events.
-    events = sorted(((e.key, e.self_device_time_total / 1e3 / n_steps)
-                     for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = sorted(((e.key, e.self_device_time_total / 1e3 / n_steps) for e in device),
                     key=lambda kv: -kv[1])
-    return state, sum(ms for _, ms in events), wall_ms / n_steps, events
+    launches = sum(e.count for e in device) / n_steps
+    return state, sum(ms for _, ms in events), wall_ms / n_steps, events, launches
 
 
 def main(argv=None) -> int:
@@ -207,6 +246,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m fluidsimulation_tpu_torch.utils.profiling")
     ap.add_argument("--transfer", choices=("flip", "apic"), default="flip",
                     help="the step to time: PIC/FLIP (step) or APIC (step_apic)")
+    ap.add_argument("--two-d", action="store_true",
+                    help="time the 2D step (step2d, or step_apic2d with --transfer apic)")
     args = ap.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -215,15 +256,24 @@ def main(argv=None) -> int:
     print(f"card (nvidia-smi name, power.limit): {card}", flush=True)
     configs = ((128, 1, 1.0 / 60.0), (64, 2, 1.0 / 120.0), (128, 2, 1.0 / 120.0))
     init = ft.init_state
-    if args.transfer == "apic":
+    if args.two_d:
+        # The 2D demo's grid and 512^2, at its dt = 1/60 x rate 0.5.
+        configs = ((64, None, 1.0 / 120.0), (512, None, 1.0 / 120.0))
+        init = ft.init_apic_state2d if args.transfer == "apic" else ft.init_state2d
+    elif args.transfer == "apic":
         configs, init = configs[:2], ft.init_apic_state
     for n, ppc, dt in configs:
-        cfg = ft.SimConfig(nx=n, ny=n, nz=n, cells_per_meter=float(n), particles_per_cell_axis=ppc)
+        if args.two_d:
+            cfg, shape = ft.SimConfig2D(nx=n, ny=n, cells_per_meter=float(n)), f"{n}^2"
+        else:
+            cfg = ft.SimConfig(nx=n, ny=n, nz=n, cells_per_meter=float(n),
+                               particles_per_cell_axis=ppc)
+            shape = f"{n}^3 ppc {ppc}"
         state = init(cfg, "cuda:0")
         state, _, _ = stage_times(state, dt, cfg, 2)  # warm-up: steps 1-2
         state, rows, totals = stage_times(state, dt, cfg, 10)
-        state, device_ms, wall_ms, events = device_time(state, dt, cfg, 3)
-        print(f"\n{args.transfer} {n}^3 ppc {ppc}, {cfg.num_particles} particles, dt={dt!r}, "
+        state, device_ms, wall_ms, events, launches = device_time(state, dt, cfg, 3)
+        print(f"\n{args.transfer} {shape}, {cfg.num_particles} particles, dt={dt!r}, "
               f"steps 3-12, medians of CUDA-event stage times, {card}")
         medians = {s: statistics.median(r[s] for r in rows) for s in rows[0]}
         for s in sorted(medians, key=medians.get, reverse=True):
@@ -233,7 +283,8 @@ def main(argv=None) -> int:
         print(f"  {'step (median)':24s} {step_ms:10.4f} ms")
         print(f"  steps 13-15 under torch.profiler: device {device_ms:.4f} ms a step, "
               f"profiled wall {wall_ms:.4f} ms a step")
-        print(f"  busy share: device ms a step / median step = {device_ms / step_ms:.4f}")
+        print(f"  busy share: device ms a step / median step = {device_ms / step_ms:.4f}; "
+              f"{launches:.0f} device events a step")
         for name, ms in events[:TOP_EVENTS]:
             print(f"    device {ms:9.4f} ms a step  {name[:100]}")
         print("", end="", flush=True)

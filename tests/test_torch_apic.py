@@ -13,7 +13,8 @@ Against JAX on the same numpy inputs, made from a seed, at 16^3:
  * step_apic against JAX's step_apic(fast=False), at ppc 1 and ppc 2: one
    step within 1e-4 abs on every field (the bound the FLIP step is held
    to), and three steps within the same 1e-4 (measured: 7.5e-6 on C, at
-   most 3e-7 elsewhere);
+   most 3e-7 elsewhere); five steps at 24^3 ppc 1 within the same 1e-4,
+   C within 2 m x 1e-4;
  * a NaN position, two steps: the same non-finite rows as JAX's (pos and C
    of that particle; its vel stays finite, as JAX's: its weights are 0) and
    finite grids.
@@ -173,6 +174,22 @@ def test_step_apic_matches_jax(ppc, jax_runs):
         for name in FIELDS:
             np.testing.assert_allclose(getattr(s, name).numpy(), np.asarray(getattr(j, name)),
                                        rtol=0, atol=STEP_ATOL, err_msg=f"step {k}: {name}")
+
+
+def test_five_steps_apic_match_jax_24():
+    """Five steps at 24^3 ppc 1 from JAX's initial state: every field within
+    STEP_ATOL of JAX's step_apic(fast=False), C within 2 m x STEP_ATOL, the
+    bound chip_smoke.py's phase A holds (C = 4 m^2 B grows with m; measured
+    3.6e-5)."""
+    cfg, jcfg = _configs(1, n=24)
+    runs = _jax_steps(jcfg, 5)
+    s = ft.apic_state_from_numpy(runs[0], "cpu")
+    for _ in range(5):
+        s = ft.step_apic(s, DT, cfg)
+    for name in FIELDS:
+        atol = 2 * cfg.nx * STEP_ATOL if name == "C" else STEP_ATOL
+        np.testing.assert_allclose(getattr(s, name).numpy(), np.asarray(getattr(runs[-1], name)),
+                                   rtol=0, atol=atol, err_msg=name)
 
 
 def _nonfinite_rows(a):

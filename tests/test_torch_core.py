@@ -106,8 +106,13 @@ def test_state_from_numpy_round_trip_bit_exact():
         "assert 'jax' not in sys.modules, 'apic imported jax'; "
         "assert not any(m.split('.')[0] == 'fluidsimulation_tpu' for m in sys.modules), "
         "'apic imported the JAX package'",
+        "import sys, fluidsimulation_tpu_torch.solver.step2d, "
+        "fluidsimulation_tpu_torch.solver.apic2d, fluidsimulation_tpu_torch.render.debug; "
+        "assert 'jax' not in sys.modules, '2d imported jax'; "
+        "assert not any(m.split('.')[0] == 'fluidsimulation_tpu' for m in sys.modules), "
+        "'2d imported the JAX package'",
     ],
-    ids=["package", "chip_smoke", "demo", "kernel_times", "render", "apic"],
+    ids=["package", "chip_smoke", "demo", "kernel_times", "render", "apic", "2d"],
 )
 def test_port_imports_no_jax(code):
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)

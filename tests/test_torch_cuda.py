@@ -25,7 +25,10 @@ two launches must give the same bits. The renderer (plain PyTorch, no hand
 kernel) gives the CPU's 32^3 frame on the card. An APIC step (plain PyTorch
 transfers, atomic sums on the card) stays within phase A's bound of the
 CPU's, and launches the pass, the sweeps and the SOR once each and no other
-kernel.
+kernel. The 2D projection's SOR runs the same kernel on (nx, ny, 1) views
+with the 2D omega and 120 iterations, bit for bit the plain version; a 2D
+step (FLIP and APIC) on the card stays within the APIC bound of the CPU's
+and launches the SOR once and no other kernel.
 """
 
 import numpy as np
@@ -585,3 +588,61 @@ def test_apic_step_launches(dev):
     ft.step_apic(s, 1.0 / 60.0, CFG)
     torch.cuda.synchronize()
     assert [m.KERNEL.launches - b for m, b in zip(modules, before)] == [1, 1, 1, 0, 0, 0]
+
+
+@pytest.mark.parametrize("shape", [(13, 9), (64, 64), (512, 512)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_sor_kernel_bit_exact_2d(dev, shape):
+    """The SOR at (nx, ny, 1) with SimConfig2D's omega and 120 iterations on
+    a noisy slab of fluid and a noise RHS: one launch, bit for bit the
+    plain version; the counters hold each colour's fluid cells and 239
+    grid barriers."""
+    from fluidsimulation_tpu_torch.solver.step2d import compute_diag2d, project
+
+    cfg = ft.SimConfig2D(nx=shape[0], ny=shape[1], cells_per_meter=float(shape[0]))
+    rng = np.random.default_rng(sum(shape) + 2)
+    x = np.arange(shape[0], dtype=np.float32)[:, None, None]
+    phi = (x - shape[0] / 2 + rng.uniform(-2.0, 2.0, size=(*shape, 1))).astype(np.float32)
+    phi = torch.from_numpy(phi).to(dev)
+    b = torch.from_numpy(rng.standard_normal((*shape, 1)).astype(np.float32)).to(dev)
+    diag = compute_diag2d(cfg, phi[..., 0])[..., None]
+    p, n = _counted(cuda_sor, cuda_sor.sor_pressure, cfg, phi, diag, b)
+    assert n == 1
+    want = cuda_sor.sor_pressure_plain(cfg, phi, diag, b)
+    assert float(want.abs().max()) > 0.0
+    assert torch.equal(p, want)
+    again, counters = cuda_sor.sor_launch(cfg, phi, diag, b)
+    assert torch.equal(again, want)
+    fluid = (phi < 0)[..., 0]
+    parity = (torch.arange(shape[0], device=dev)[:, None]
+              + torch.arange(shape[1], device=dev)[None, :]) % 2
+    assert counters.tolist() == [int((fluid & (parity == 0)).sum()),
+                                 int((fluid & (parity == 1)).sum()), 2 * 120 - 1]
+    # The projection's own call: one launch, at its (nx, ny, 1) views.
+    u = torch.zeros((shape[0] + 1, shape[1]), device=dev)
+    v = torch.zeros((shape[0], shape[1] + 1), device=dev)
+    _, n = _counted(cuda_sor, project, cfg, u, v, phi[..., 0], 0.01)
+    assert n == 1
+
+
+@pytest.mark.parametrize("apic", [False, True], ids=["flip", "apic"])
+def test_2d_step_on_card_matches_cpu(dev, apic):
+    """A 32^2 state stepped twice on the CPU, then one step on the card and
+    on the CPU: within 1e-4 abs, C within 2 m x 1e-4 (P2G's index_add_ sums
+    by atomics on the card); the card step launches the SOR once and no
+    other kernel."""
+    cfg = ft.SimConfig2D(nx=N, ny=N, cells_per_meter=float(N))
+    init, step = (ft.init_apic_state2d, ft.step_apic2d) if apic else (ft.init_state2d, ft.step2d)
+    s = init(cfg, "cpu")
+    for _ in range(2):
+        s = step(s, 1.0 / 120.0, cfg)
+    cpu = step(s, 1.0 / 120.0, cfg)
+    modules = (cuda_seed, cuda_sweep, cuda_sor, cuda_p2g, cuda_g2p, cuda_pack)
+    before = [m.KERNEL.launches for m in modules]
+    card = step(s.to(dev), 1.0 / 120.0, cfg)
+    torch.cuda.synchronize()
+    assert [m.KERNEL.launches - b for m, b in zip(modules, before)] == [0, 0, 1, 0, 0, 0]
+    for name in ("pos", "vel", "C", "u", "v", "phi") if apic else ("pos", "vel", "u", "v", "phi"):
+        atol = 2 * cfg.nx * 1e-4 if name == "C" else 1e-4
+        torch.testing.assert_close(getattr(card, name).cpu(), getattr(cpu, name), rtol=0,
+                                   atol=atol, msg=name)

@@ -4,7 +4,9 @@
 and a JAX checkpoint loads in the port, bit for bit; Meter and check_state
 give the JAX answers on the same states. With --render-every it writes the
 frames JAX's write_ppm writes of the same arrays, and the camera commands
-move the camera as JAX's OrbitCamera moves."""
+move the camera as JAX's OrbitCamera moves. Its 2D loop (--two-d) runs at
+16^2 and writes the bytes JAX's write_ppm writes of JAX's splat of the same
+state; the debug renderers (render/debug.py) give JAX's images."""
 
 import contextlib
 import logging
@@ -19,9 +21,12 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from fluidsimulation_tpu.app.demo import write_ppm as jax_write_ppm
 from fluidsimulation_tpu.core.config import SimConfig as JaxConfig
 from fluidsimulation_tpu.core.state import init_state as jax_init
+from fluidsimulation_tpu.render import debug as jax_debug
 from fluidsimulation_tpu.render.camera import OrbitCamera as JaxCamera
 from fluidsimulation_tpu.solver.step3d import step_jit
 from fluidsimulation_tpu.utils import checkpoint as jax_cp
@@ -29,6 +34,7 @@ from fluidsimulation_tpu.utils import metrics as jax_metrics
 
 import fluidsimulation_tpu_torch as ft
 from fluidsimulation_tpu_torch.app.demo import main
+from fluidsimulation_tpu_torch.render import debug
 from fluidsimulation_tpu_torch.solver.step3d import clamp_dt
 from fluidsimulation_tpu_torch.utils import checkpoint, metrics
 from fluidsimulation_tpu_torch.utils.profiling import hooked
@@ -109,12 +115,71 @@ def test_jax_checkpoint_loads_in_port_bit_exact(tmp_path):
         checkpoint.load_state(path, "cpu", ft.SimConfig(nx=8, ny=8, nz=8, cells_per_meter=8.0))
 
 
-@pytest.mark.parametrize("flag", [["--serve", "8000"], ["--two-d"], ["--two-d", "--transfer", "apic"],
-                                  ["--profile"]])
+@pytest.mark.parametrize("flag", [["--serve", "8000"], ["--two-d", "--serve", "8000"],
+                                  ["--two-d", "--profile"], ["--profile"]])
 def test_flags_of_unported_slices_are_refused(flag):
     with pytest.raises(SystemExit) as e:
         main([*flag, "--device", "cpu", "--steps", "0"])
     assert e.value.code != 0
+
+
+@pytest.mark.parametrize("transfer", ["flip", "apic"])
+def test_demo_2d_writes_splat_frames(tmp_path, capsys, transfer):
+    """--two-d at 16^2 for 3 steps with --render-every 1 writes
+    frame2d_00000.ppm-frame2d_00002.ppm; the first is the bytes JAX's
+    write_ppm writes of JAX's splat_particles_2d of the state one step of
+    the port's (step2d or step_apic2d, dt = clip(dt x rate, 0, max_dt))
+    gives."""
+    out = tmp_path / "out"
+    assert main(["--two-d", "--transfer", transfer, "--device", "cpu", "--grid", "16",
+                 "--steps", "3", "--render-every", "1", "--width", "40", "--height", "30",
+                 "--out", str(out)]) == 0
+    cfg = ft.SimConfig2D(nx=16, ny=16, cells_per_meter=16.0)
+    text = capsys.readouterr().out
+    assert f"2D grid 16x16, {cfg.num_particles} particles on cpu" in text
+    assert "step 0:" in text and "3 steps in" in text
+    assert sorted(p.name for p in out.iterdir()) == [f"frame2d_{i:05d}.ppm" for i in range(3)]
+    init, step = ((ft.init_apic_state2d, ft.step_apic2d) if transfer == "apic"
+                  else (ft.init_state2d, ft.step2d))
+    s = step(init(cfg, "cpu"), float(np.clip(1.0 / 60.0 * 0.5, 0.0, cfg.max_dt)), cfg)
+    jax_write_ppm(str(tmp_path / "jax.ppm"),
+                  np.asarray(jax_debug.splat_particles_2d(jnp.asarray(s.pos.numpy()), 40, 30)))
+    assert (out / "frame2d_00000.ppm").read_bytes() == (tmp_path / "jax.ppm").read_bytes()
+
+
+def test_debug_renderers_match_jax():
+    """checkerboard, splat_particles_2d and splat_particles_3d bit for bit
+    JAX's (tests/test_app.py::test_debug_renderers' views), on a background
+    too; particles off the image and a NaN clip to its edge pixels in both.
+    The 3D splat shades by depth, and JAX leaves the colour of a shared
+    pixel undefined, so its particles have distinct pixels."""
+    w, h = 64, 48
+    np.testing.assert_array_equal(debug.checkerboard(w, h, device="cpu").numpy(),
+                                  np.asarray(jax_debug.checkerboard(w, h)))
+    np.testing.assert_array_equal(debug.checkerboard(30, 20, 5, device="cpu").numpy(),
+                                  np.asarray(jax_debug.checkerboard(30, 20, 5)))
+    rng = np.random.default_rng(7)
+    pos2 = rng.uniform(-0.1, 1.1, size=(500, 2)).astype(np.float32)
+    pos2[:3] = [[np.nan, 0.5], [0.5, np.nan], [2.0, -3.0]]
+    bg = rng.random((h, w, 3)).astype(np.float32)
+    for kw in ({}, {"color": (1.0, 0.5, 0.0)}):
+        np.testing.assert_array_equal(
+            debug.splat_particles_2d(torch.from_numpy(pos2), w, h, **kw).numpy(),
+            np.asarray(jax_debug.splat_particles_2d(jnp.asarray(pos2), w, h, **kw)))
+    got = debug.splat_particles_2d(torch.from_numpy(pos2), w, h, background=torch.from_numpy(bg))
+    want = jax_debug.splat_particles_2d(jnp.asarray(pos2), w, h, jnp.asarray(bg))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    cells = rng.permutation(w * h)[:300]
+    pos3 = rng.uniform(0.0, 1.0, size=(300, 3)).astype(np.float32)
+    pos3[:, 0] = ((cells % w) + 0.5) / w
+    pos3[:, 1] = 1.0 - ((cells // w) + 0.5) / h
+    for axis in range(3):
+        keep = [a for a in range(3) if a != axis]
+        p = pos3[:, [*keep, axis]][:, np.argsort([*keep, axis])]
+        img = debug.splat_particles_3d(torch.from_numpy(p), w, h, axis=axis).numpy()
+        want = jax_debug.splat_particles_3d(jnp.asarray(p), w, h, axis)
+        np.testing.assert_array_equal(img, np.asarray(want))
+        assert not np.array_equal(img, debug.checkerboard(w, h, device="cpu").numpy())
 
 
 def _frames_drawn(argv):
@@ -228,8 +293,9 @@ def test_temporal_seed_cleared_on_camera_moves_and_resets(tmp_path, monkeypatch)
 def test_demo_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the default device would run")
-    with pytest.raises(RuntimeError, match="cuda"):
-        main(["--grid", "8", "--steps", "1"])
+    for flags in ([], ["--two-d"], ["--two-d", "--transfer", "apic"]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(["--grid", "8", "--steps", "1", *flags])
 
 
 def test_stdin_commands_through_python_m(tmp_path):

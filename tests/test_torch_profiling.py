@@ -55,6 +55,29 @@ def test_stage_times_marks_every_apic_stage_and_keeps_the_step():
     assert (apic.p2g_apic, apic.g2p_apic, apic.advect_rk3_pic) == before
 
 
+@pytest.mark.parametrize("apic", [False, True], ids=["flip", "apic"])
+def test_stage_times_marks_every_2d_stage_and_keeps_the_step(apic):
+    """A SimState2D is stepped by step2d, an ApicState2D by step_apic2d,
+    each with its own stages marked (the 8 sweeps summed in one)."""
+    from fluidsimulation_tpu_torch.solver import apic2d, step2d
+
+    before = (step2d._sweep_axis2, step2d.sor_pressure, apic2d.p2g_apic2d)
+    cfg = ft.SimConfig2D(nx=N, ny=N, cells_per_meter=float(N))
+    init, step = (ft.init_apic_state2d, ft.step_apic2d) if apic else (ft.init_state2d, ft.step2d)
+    stages = profiling.APIC2D_STAGES if apic else profiling.STAGES_2D
+    s0 = init(cfg, "cpu")
+    timed, rows, totals = profiling.stage_times(s0, 0.01, cfg, 2)
+    plain = step(step(s0, 0.01, cfg), 0.01, cfg)
+    for name in ("pos", "vel", "u", "v", "phi", *(("C",) if apic else ())):
+        torch.testing.assert_close(getattr(timed, name), getattr(plain, name), rtol=0, atol=0)
+    assert ("APIC P2G" in stages) is apic and ("FLIP" in stages) is not apic
+    for row, total in zip(rows, totals):
+        assert list(row) == stages
+        assert all(row[s] > 0 for s in stages)
+        assert sum(row.values()) <= total
+    assert (step2d._sweep_axis2, step2d.sor_pressure, apic2d.p2g_apic2d) == before
+
+
 def test_hooked_sees_every_demo_step_and_restores(tmp_path):
     from fluidsimulation_tpu_torch.app import demo
 
