@@ -7,7 +7,8 @@ Run from the repository root with no arguments:
 
 It builds the six hand-written CUDA kernels from csrc/, compares each with
 its plain PyTorch version on the card, and drives five 3D paths of the
-port and the 2D family's, each with the launch counts set to 0 just before
+port, the 2D family's, the demo's --profile and --serve and three 256^3
+paths, each with the launch counts set to 0 just before
 it and read just after, and renders 800x600 frames of the level sets of
 the first two:
 
@@ -22,7 +23,11 @@ the first two:
   * the 2D family (solver/step2d.py::step2d, solver/apic2d.py::
     step_apic2d) through the demo's --two-d loop: the reference's 64^2
     (7,688 particles), 60 steps with frames, and 512^2 (520,200
-    particles), 6 steps, each with --transfer flip and apic.
+    particles), 6 steps, each with --transfer flip and apic;
+  * the demo's host side: --profile (the reference's 23-mark table, FLIP
+    and APIC) and --serve (the live view, 3D and --two-d), with a client;
+  * the 256^3 dam break: FLIP and APIC at ppc 1 (8,193,532 particles) and
+    a 20-step guarded soak at ppc 2 (65,548,256 particles).
 
 Every step of every path must launch each kernel the expected number of
 times (the 24 sweeps are one C call, one launch count); the combined-key
@@ -93,8 +98,33 @@ Phases, each printing before the next:
      for 6 steps: median of 5 after 1 warm-up, peak device memory, the SOR
      vs its plain version on the last step's inputs (timed), all fields
      finite
-  8  {"kernels": [...], "apic": {...}, "render": {...}, "two_d": {...}} and
-     then {"ok": true, "device": {...}}
+  P  the app: P1, app.demo.main at its defaults with --profile, --steps 6
+     --render-every 3 at 160x120, every profiled step through phase 5's
+     launch check; its six printed tables each its profiler's table(),
+     every stage mark > 0, the eight marks JAX never times 0, DRAW > 0 on
+     steps 0 and 3 only, a step's stage marks and DRAW no more than its
+     printed step time; then --transfer apic for 3 steps (phase A's
+     launches); each mark's median. P2, --serve on a free port: the demo
+     at 64^3 with a 160x120 frame a step and --steps 200, and a client
+     thread that reads the page and one /stream part (a PNG decoding to a
+     frame the demo wrote, or a 160x120 JPEG), posts 'o 10 -5' and '+',
+     reads two more parts and posts 'q': the '+' doubles dt, the run ends
+     before 200 steps and main returns 0; then the same with --two-d at
+     64^2, Pillow hidden so that the view streams its zlib PNG
+  B  256^3 (each sub-phase's wall seconds printed): B1, FLIP at ppc 1,
+     8,193,532 particles, dt 1/60, 2 warm-up and 8 timed steps (median by
+     CUDA events), peak device memory, all fields finite, the centre of
+     mass fallen, then kernels 1-5 vs their plain versions on the last
+     step's inputs, timed, with the sweeps by axis and the SOR's counters;
+     B2, APIC at ppc 1, 1 warm-up and 4 timed steps, each launching the
+     pass, the sweeps and the SOR and no other kernel, median step and
+     peak; B3, the soak: ppc 2, 65,548,256 particles, dt 1/240, 20 steps
+     of step_guarded, healthy on every one, |v|max and mean y every 5,
+     median step and peak, then P2G's ppc >= 2 path vs its plain version
+     on the last step's inputs (if the plain version does not fit, the
+     bytes it asked for are printed; phase 6 holds it at 128^3 ppc 2)
+  8  {"kernels": [...], "apic": {...}, "render": {...}, "two_d": {...},
+     "app": {...}, "big": {...}} and then {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -102,6 +132,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -148,6 +180,25 @@ TWO_D_BIG_STEPS = 6  # 1 warm-up and 5 timed
 TWO_D_WARMUP = 1
 BAD = 5  # the particle that gets a NaN position (phases 4 and D1)
 
+# Phase P: the demo's --profile and --serve.
+PROFILE_STEPS, PROFILE_APIC_STEPS, PROFILE_EVERY = 6, 3, 3
+SERVE_STEPS = 200  # the most a --serve run may take; its client quits it long before
+SERVE_TIMEOUT = 120.0  # seconds the client waits for the demo's view, and to join
+# Marks a --profile step never times (utils/profiling.py::MARK_OF_STAGE).
+JAX_ZERO_MARKS = ("TRANSFERPTG_CLEARCOUNTS", "TRANSFERPTG_COUNTPARTICLES",
+                  "TRANSFERPTG_PREFIXSUM_COPYMAP", "TRANSFERPTG_PREFIXSUM_WAIT",
+                  "TRANSFERPTG_PREFIXSUM_UNMAPUPDATE", "TRANSFERPTG_LEVELSET_CLEAR",
+                  "FLIP_COPYVELOCITIES", "PROJECT_PCLEAR")
+
+# Phase B: 256^3, the JAX package's recorded capability point.
+BIG_N = 256
+BIG_PARTICLES = {1: 8_193_532, 2: 65_548_256}
+BIG_FLIP_STEPS = 8  # timed, after N_WARMUP
+BIG_APIC_STEPS, BIG_APIC_WARMUP = 4, 1
+SOAK_DT = 1.0 / 240.0
+SOAK_STEPS = 20
+SOAK_EVERY = 5  # steps between the soak's |v|max and mean-y lines
+
 # H100 SXM data-sheet peaks at 700 W: device memory rate, and float32
 # outside the tensor cores (every kernel here is float32 arithmetic).
 HBM_BYTES_PER_S = 3.35e12
@@ -186,18 +237,30 @@ def device_ms(fn, reps: int) -> float:
     events (kernels, copies, fills) it launches, summed under
     torch.profiler, after one warm-up run. Unlike cuda_ms it leaves out the
     gaps where the card waits for the host to launch the next call, which
-    set cuda_ms of a kernel shorter than about 0.03 ms."""
+    set cuda_ms of a kernel shorter than about 0.03 ms. A profile that
+    lost records is taken again, up to three times, then cuda_ms stands
+    in."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        # Every run launches its kernel at least once: a profile holding
+        # fewer records of its most frequent event lost some, and its sum
+        # would read low.
+        records = max((e.count for e in device), default=0)
+        if records >= reps:
+            return sum(e.self_device_time_total for e in device) / 1e3 / reps
+        say(f"device_ms: the profiler recorded {records} device events of {reps} runs; again")
+    ms = cuda_ms(fn, reps)
+    say(f"device_ms: records lost three times; {ms!r} ms by CUDA events instead")
+    return ms
 
 
 def capture(store: dict):
@@ -470,10 +533,11 @@ def sweep_sor_details(captured, label: str, card: str) -> None:
         f"{1e3 * (air_ms - prologue_ms) / barriers!r} us a barrier on {card}")
 
 
-def timed_steps(check, n_steps, state, dt, cfg, captured, step=None):
+def timed_steps(check, n_steps, state, dt, cfg, captured, step=None, warmup=N_WARMUP):
     """n_steps of ``step`` (by default the PIC/FLIP step) through the
     launch check, CUDA-event timed; the last step's kernel arguments go to
-    ``captured``. Returns the state and the step times after the warm-up."""
+    ``captured``. Returns the state and the step times after the
+    ``warmup`` steps."""
     import fluidsimulation_tpu_torch as ft
 
     step = ft.step if step is None else step
@@ -489,7 +553,7 @@ def timed_steps(check, n_steps, state, dt, cfg, captured, step=None):
             state = check.step(lambda: step(state, dt, cfg))
         end.record()
         torch.cuda.synchronize()
-        if i >= N_WARMUP:
+        if i >= warmup:
             times.append(start.elapsed_time(end))
     return state, times
 
@@ -1279,6 +1343,493 @@ def render_phase(dev, main_phi, main_step_ms, demo_phi, demo_step_ms, card) -> d
     out["demo with frames"] = demo_with_frames(card)
     return out
 
+def parse_profile(label: str, text: str, profs: list, draw_steps) -> list:
+    """The --profile tables and step lines the demo printed, held against
+    the StageProfilers its steps returned (``profs``): each printed table
+    is its profiler's table(), followed by the step's line. Returns one
+    {mark: ms} a step, with the printed step time under "step_ms". Raises
+    unless every stage mark is > 0, the marks JAX never times are 0, DRAW is
+    > 0 on ``draw_steps`` only, and a step's stage marks and DRAW sum to no
+    more than its printed step time, within that print's rounding (0.05
+    ms)."""
+    from fluidsimulation_tpu_torch.utils.profiling import MARKS, STAGE_MARKS
+
+    lines = text.splitlines()
+    heads = [i for i, line in enumerate(lines) if line.startswith("GPU time:\tA ")]
+    if len(heads) != len(profs):
+        raise AssertionError(f"{label}: {len(heads)} profile tables, {len(profs)} profiled steps")
+    rows = []
+    for step, (i, prof) in enumerate(zip(heads, profs)):
+        if "\n".join(lines[i:i + 2]) != prof.table():
+            raise AssertionError(f"{label} step {step}: the printed table is not the profiler's")
+        found = re.match(rf"step {step}: ([0-9.]+) ms", lines[i + 2])
+        if not found:
+            raise AssertionError(f"{label} step {step}: no step line after the table")
+        row = {m: 1e3 * prof.times[m] for m in MARKS}
+        row["step_ms"] = float(found.group(1))
+        zero = [m for m in STAGE_MARKS if not row[m] > 0]
+        if zero:
+            raise AssertionError(f"{label} step {step}: stage marks {zero} not > 0")
+        if any(row[m] != 0.0 for m in JAX_ZERO_MARKS):
+            raise AssertionError(f"{label} step {step}: a mark JAX never times is not 0: {row}")
+        if (row["DRAW"] > 0) != (step in draw_steps):
+            raise AssertionError(f"{label} step {step}: DRAW {row['DRAW']}, frames on steps "
+                                 f"{list(draw_steps)}")
+        stages = sum(row[m] for m in STAGE_MARKS)
+        if stages + row["DRAW"] > row["step_ms"] + 0.05:
+            raise AssertionError(f"{label} step {step}: stage marks {stages} ms + DRAW "
+                                 f"{row['DRAW']} ms > step {row['step_ms']} ms")
+        rows.append(row)
+    return rows
+
+
+def run_demo_captured(argv, sites, around) -> tuple[int, str]:
+    """app.demo.main(argv) with ``sites`` hooked by ``around``; its standard
+    output captured, then printed. Returns (its return code, its output)."""
+    import contextlib
+    import io
+
+    from fluidsimulation_tpu_torch.app import demo
+    from fluidsimulation_tpu_torch.utils.profiling import hooked
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf), hooked(sites, around):
+            rc = demo.main(argv)
+    finally:
+        sys.stdout.write(buf.getvalue())
+        sys.stdout.flush()
+    return rc, buf.getvalue()
+
+
+def unprofiled_steps(transfer, steps, step_attr) -> list:
+    """The demo's argv of profile_demo without --profile: the host time of
+    each step call and the synchronize after it, in ms (the printed step
+    time of a --profile step without a frame covers the same)."""
+    times = []
+
+    def timed(_, orig, args):
+        t0 = time.perf_counter()
+        out = orig(*args)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as out_dir:
+        rc, _ = run_demo_captured(
+            ["--device", "cuda", "--transfer", transfer, "--steps", str(steps), "--render-every",
+             str(PROFILE_EVERY), "--width", str(SMALL_FRAME[0]), "--height", str(SMALL_FRAME[1]),
+             "--out", out_dir], [("app.demo", step_attr, "step")], timed)
+    if rc != 0 or len(times) != steps:
+        raise AssertionError(f"unprofiled demo ({transfer}): rc {rc}, {len(times)} steps")
+    return times
+
+
+def profile_demo(card) -> dict:
+    """P1: the demo at its defaults with --profile, FLIP for PROFILE_STEPS
+    steps and APIC for PROFILE_APIC_STEPS, a 160x120 frame every
+    PROFILE_EVERY steps; every profiled step through the launch check of
+    its family (phases 5 and A); the tables checked (parse_profile).
+    Before each, the same run without --profile (unprofiled_steps): the
+    cost of --profile is the median printed step time against the median
+    unprofiled step, over the steps after the first that draw no frame.
+    Returns each mark's median over the steps, and the step times."""
+    from fluidsimulation_tpu_torch.utils.profiling import MARKS
+
+    out = {}
+    for transfer, steps, attr, step_attr, expect in (
+        ("flip", PROFILE_STEPS, "profile_step", "step", None),
+        ("apic", PROFILE_APIC_STEPS, "profile_step_apic", "step_apic", apic_launches()),
+    ):
+        plain = unprofiled_steps(transfer, steps, step_attr)
+        label = f"phase P1 (--profile, {transfer})"
+        check, profs = LaunchCheck(label, expect), []
+
+        def profiled(_, orig, args):
+            out = check.step(lambda: orig(*args))
+            profs.append(out[1])
+            return out
+
+        build = Path(__file__).resolve().parent / "build"
+        build.mkdir(exist_ok=True)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=build) as out_dir:
+            rc, text = run_demo_captured(
+                ["--device", "cuda", "--profile", "--transfer", transfer, "--steps", str(steps),
+                 "--render-every", str(PROFILE_EVERY), "--width", str(SMALL_FRAME[0]),
+                 "--height", str(SMALL_FRAME[1]), "--out", out_dir],
+                [("app.demo", attr, "profile")], profiled)
+        if rc != 0:
+            raise AssertionError(f"{label}: main returned {rc}")
+        if check.steps != steps:
+            raise AssertionError(f"{label}: {check.steps} profiled steps, expected {steps}")
+        launches = check.totals()
+        rows = parse_profile(label, text, profs, range(0, steps, PROFILE_EVERY))
+        medians = {m: statistics.median(r[m] for r in rows) for m in MARKS}
+        bare = [i for i in range(1, steps) if i % PROFILE_EVERY]
+        profiled_ms = statistics.median(rows[i]["step_ms"] for i in bare)
+        plain_ms = statistics.median(plain[i] for i in bare)
+        say(f"{label}: {steps} tables checked in {time.perf_counter() - t0:.1f} s; median ms a "
+            "mark: " + ", ".join(f"{m}={v!r}" for m, v in medians.items()) + f"; steps {bare} "
+            f"without a frame: profiled {profiled_ms!r} ms, unprofiled {plain_ms!r} ms (median) "
+            f"on {card}")
+        out[transfer] = {"mark_median_ms": medians, "step_ms": [r["step_ms"] for r in rows],
+                         "unprofiled_step_ms": plain, "profiled_median_ms": profiled_ms,
+                         "unprofiled_median_ms": plain_ms, "launches": launches}
+    return out
+
+
+def jpeg_size(data: bytes) -> tuple[int, int]:
+    """(width, height) from a JPEG's first start-of-frame marker."""
+    i = 2
+    while i + 9 < len(data):
+        if data[i] != 0xFF:
+            raise AssertionError("JPEG: lost marker sync")
+        marker, length = data[i + 1], int.from_bytes(data[i + 2:i + 4], "big")
+        if marker in (0xC0, 0xC1, 0xC2):
+            width, height = data[i + 7:i + 9], data[i + 5:i + 7]
+            return int.from_bytes(width, "big"), int.from_bytes(height, "big")
+        i += 2 + length
+    raise AssertionError("JPEG: no start-of-frame marker")
+
+
+def decode_png(data: bytes):
+    """An RGB8 PNG of filter-0 scanlines (app/liveview.py::_encode_png) as
+    an (H, W, 3) uint8 array, each chunk's CRC checked; raises on anything
+    else."""
+    import zlib
+
+    import numpy as np
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("PNG: bad signature")
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        length, tag = int.from_bytes(data[pos:pos + 4], "big"), data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        crc = int.from_bytes(data[pos + 8 + length:pos + 12 + length], "big")
+        if crc != zlib.crc32(tag + body):
+            raise AssertionError(f"PNG: bad CRC in {tag!r}")
+        if tag == b"IHDR":
+            w, h = int.from_bytes(body[:4], "big"), int.from_bytes(body[4:8], "big")
+            if tuple(body[8:10]) != (8, 2):
+                raise AssertionError(f"PNG: not RGB8 ({tuple(body[8:10])})")
+            size = (h, w)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + length
+    h, w = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError("PNG: a scanline filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def serve_client(base: str, got: dict) -> None:
+    """The live view's client: wait for the page, read it and one /stream
+    part, post 'o 10 -5' and '+', read two more parts and post 'q'.
+    Whatever it raises is kept in got["error"] for the main thread."""
+    import urllib.error
+    import urllib.request
+
+    # No proxy from the environment: every request is to 127.0.0.1.
+    urlopen = urllib.request.build_opener(urllib.request.ProxyHandler({})).open
+    try:
+        deadline = time.monotonic() + SERVE_TIMEOUT
+        while True:
+            try:
+                got["page"] = urlopen(f"{base}/", timeout=30).read()
+                break
+            except urllib.error.URLError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.2)
+        resp = urlopen(f"{base}/stream", timeout=60)
+
+        def part():
+            head = b""
+            while not head.endswith(b"\r\n\r\n"):
+                head += resp.read(1)
+            length = int(re.search(rb"Content-Length: (\d+)", head).group(1))
+            return head, resp.read(length)
+
+        def post(c):
+            urlopen(f"{base}/cmd?c={c}", timeout=30).read()
+            got.setdefault("posted", []).append(c)
+
+        got["head"], got["part"] = part()
+        post("o%2010%20-5")
+        post("%2B")
+        # Two frames on, a step has begun after the '+' was queued, so it
+        # ran at the doubled rate before the 'q'.
+        part()
+        part()
+        resp.close()
+        post("q")
+    except Exception as e:  # handed to the main thread, which raises it
+        got["error"] = e
+
+
+def serve_demo(label, argv, step_attr, expect, frame_glob, rate_dts, card,
+               hide_pillow=False) -> dict:
+    """P2: the demo with --serve on a free port, a 160x120 frame a step, and
+    a client thread (serve_client); every step through the launch check.
+    With ``hide_pillow`` PIL cannot be imported during the run, so the
+    view's zlib PNG is what it streams. Raises unless the client read the
+    page and a frame (a PNG decoding to a PPM the demo wrote, or a JPEG of
+    160x120), the '+' doubled dt, and 'q' ended the run before SERVE_STEPS
+    steps, with main returning 0."""
+    import threading
+
+    import numpy as np
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    check = LaunchCheck(label, expect)
+    dts, got = [], {}
+
+    def counted(_, orig, args):
+        dts.append(args[1])
+        return check.step(lambda: orig(*args))
+
+    client = threading.Thread(target=serve_client, args=(f"http://127.0.0.1:{port}", got),
+                              daemon=True)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    saved_pil = sys.modules.get("PIL", False)
+    with tempfile.TemporaryDirectory(dir=build) as out_dir:
+        if hide_pillow:
+            sys.modules["PIL"] = None
+        client.start()
+        try:
+            rc, _ = run_demo_captured(
+                ["--device", "cuda", *argv, "--render-every", "1", "--width", str(SMALL_FRAME[0]),
+                 "--height", str(SMALL_FRAME[1]), "--steps", str(SERVE_STEPS), "--serve",
+                 str(port), "--out", out_dir],
+                [("app.demo", step_attr, "step")], counted)
+        finally:
+            client.join(SERVE_TIMEOUT)
+            if hide_pillow:
+                if saved_pil is False:
+                    del sys.modules["PIL"]
+                else:
+                    sys.modules["PIL"] = saved_pil
+        if client.is_alive():
+            raise AssertionError(f"{label}: the client did not finish in {SERVE_TIMEOUT} s")
+        if "error" in got:
+            raise AssertionError(f"{label}: the client failed: {got['error']!r}")
+        if rc != 0:
+            raise AssertionError(f"{label}: main returned {rc}")
+        launches = check.totals()
+        if not check.steps < SERVE_STEPS:
+            raise AssertionError(f"{label}: ran {check.steps} steps; 'q' did not end the run")
+        if b"/stream" not in got["page"]:
+            raise AssertionError(f"{label}: the page has no /stream")
+        w, h = SMALL_FRAME
+        part, match = got["part"], None
+        if b"Content-Type: image/png" in got["head"]:
+            kind, pixels = "png", decode_png(part)
+            if pixels.shape != (h, w, 3):
+                raise AssertionError(f"{label}: PNG of shape {pixels.shape}")
+            for f in sorted(Path(out_dir).glob(frame_glob)):
+                if np.array_equal(decode_ppm(f, w, h), pixels):
+                    match = f.name
+                    break
+            if match is None:
+                raise AssertionError(f"{label}: the streamed PNG equals no frame the demo wrote")
+        elif b"Content-Type: image/jpeg" in got["head"]:
+            kind = "jpeg"
+            if part[:2] != b"\xff\xd8" or jpeg_size(part) != (w, h):
+                raise AssertionError(f"{label}: not a {w}x{h} JPEG")
+        else:
+            raise AssertionError(f"{label}: part headers {got['head']!r}")
+        frames = len(list(Path(out_dir).glob(frame_glob)))
+    slow, fast = rate_dts
+    if dts[0] != slow or fast not in dts or dts[dts.index(fast) - 1] != slow:
+        raise AssertionError(f"{label}: dts {dts[:8]}, expected {slow} then {fast} after '+'")
+    seconds = time.perf_counter() - t0
+    say(f"{label}: port {port}: the page, one {kind} part ({len(part)} B"
+        f"{', equal to ' + match if match else ''}), posted {got['posted']}; dt {slow!r} -> "
+        f"{fast!r} after '+'; 'q' ended the run after {check.steps} of {SERVE_STEPS} steps, "
+        f"{frames} frames written; {seconds:.1f} s on {card}")
+    return {"port": port, "image": kind, "part_bytes": len(part), "equal_to": match,
+            "steps": check.steps, "frames": frames, "launches": launches, "seconds": seconds}
+
+
+def app_phase(card) -> dict:
+    """Phase P: P1 (--profile) and P2 (--serve, 3D and --two-d)."""
+    import fluidsimulation_tpu_torch as ft
+    from fluidsimulation_tpu_torch.solver.step3d import clamp_dt
+
+    out = {"profile": profile_demo(card)}
+    demo_cfg = ft.SimConfig()  # the demo's 64^3
+    out["serve_3d"] = serve_demo(
+        "phase P2 (--serve, 64^3)", [], "step", None, "frame_*.ppm",
+        (clamp_dt(demo_cfg, DT, 0.5), clamp_dt(demo_cfg, DT, 1.0)), card)
+    out["serve_2d"] = serve_demo(
+        "phase P2 (--serve, --two-d 64^2)", ["--two-d"], "step2d", two_d_launches(),
+        "frame2d_*.ppm", (DT * 0.5, DT * 1.0), card, hide_pillow=True)
+    out["steps_taken"] = {"serve_3d": out["serve_3d"]["steps"],
+                          "serve_2d": out["serve_2d"]["steps"]}
+    return out
+
+
+def big_cfg(ppc: int):
+    import fluidsimulation_tpu_torch as ft
+
+    return ft.SimConfig(nx=BIG_N, ny=BIG_N, nz=BIG_N, cells_per_meter=float(BIG_N),
+                        particles_per_cell_axis=ppc)
+
+
+def big_state(label, init, ppc):
+    """The 256^3 dam break at ppc on the card, the peak counter reset
+    before it; raises on a wrong particle count."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = big_cfg(ppc)
+    state = init(cfg, DEVICE)
+    if state.pos.shape[0] != BIG_PARTICLES[ppc]:
+        raise AssertionError(f"{label}: expected {BIG_PARTICLES[ppc]} particles, got "
+                             f"{state.pos.shape[0]}")
+    return cfg, state
+
+
+def fold_errors(results: dict, kernels: dict) -> None:
+    """Every kernel error of phase B also goes to the report's maximum."""
+    for key, entry in kernels.items():
+        top = results.setdefault(key, {"max_abs_err": 0.0})
+        top["max_abs_err"] = max(top["max_abs_err"], entry["max_abs_err"])
+
+
+def big_phase(table, results, card) -> dict:
+    """Phase B: the 256^3 dam break. B1: FLIP at ppc 1, N_WARMUP + 8 steps,
+    kernels 1-5 vs their plain versions on the last step's inputs, timed,
+    with the SOR's counters; B2: APIC at ppc 1, 1 + 4 steps; B3: the soak,
+    ppc 2 at dt 1/240, 20 guarded steps, each healthy, then P2G's ppc >= 2
+    path vs its plain version on the last step's inputs. Every step through
+    the launch check of its family."""
+    import fluidsimulation_tpu_torch as ft
+
+    out = {}
+    ppc1_keys = ("seed", "sweep", "p2g", "sor", "g2p")
+
+    t0 = time.perf_counter()
+    label = f"phase B1 (FLIP {BIG_N}^3 ppc 1)"
+    cfg, state = big_state(label, ft.init_state, 1)
+    y0 = float(state.pos[:, 1].mean())
+    check, captured = LaunchCheck(label), {}
+    state, times = timed_steps(check, N_WARMUP + BIG_FLIP_STEPS, state, DT, cfg, captured)
+    launches = check.totals()
+    check_finite(label, state)
+    y1 = float(state.pos[:, 1].mean())
+    if not y1 < y0:
+        raise AssertionError(f"{label}: centre of mass did not fall ({y0} -> {y1})")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(times)
+    say(f"{label}: {BIG_PARTICLES[1]} particles, dt={DT!r}: all fields finite, mean y {y0!r} -> "
+        f"{y1!r}; median step {step_ms!r} ms over {len(times)} steps after {N_WARMUP} warm-up "
+        f"(min {min(times)!r}, max {max(times)!r}); peak device memory {peak} B "
+        f"({peak / 2**30:.3f} GiB) on {card}")
+    del state
+    kernels: dict = {}
+    check_kernels(table, ppc1_keys, captured, f"{BIG_N}^3 ppc 1", kernels, timed=ppc1_keys,
+                  reported=ppc1_keys)
+    sweep_sor_details(captured, f"{BIG_N}^3 ppc 1", card)
+    del captured
+    fold_errors(results, kernels)
+    seconds = time.perf_counter() - t0
+    say(f"{label}: {seconds:.1f} s")
+    out["B1"] = {"step_ms": step_ms, "step_times": times, "peak_bytes": peak,
+                 "launches": launches, "kernels": kernels, "seconds": seconds}
+
+    t0 = time.perf_counter()
+    label = f"phase B2 (APIC {BIG_N}^3 ppc 1)"
+    cfg, state = big_state(label, ft.init_apic_state, 1)
+    y0 = float(state.pos[:, 1].mean())
+    check = LaunchCheck(label, apic_launches())
+    state, times = timed_steps(check, BIG_APIC_WARMUP + BIG_APIC_STEPS, state, DT, cfg, {},
+                               step=ft.step_apic, warmup=BIG_APIC_WARMUP)
+    launches = check.totals()
+    check_finite(label, state)
+    y1 = float(state.pos[:, 1].mean())
+    if not y1 < y0:
+        raise AssertionError(f"{label}: centre of mass did not fall ({y0} -> {y1})")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(times)
+    del state
+    seconds = time.perf_counter() - t0
+    say(f"{label}: {BIG_PARTICLES[1]} particles: all fields finite, mean y {y0!r} -> {y1!r}; "
+        f"median step {step_ms!r} ms over {len(times)} steps after {BIG_APIC_WARMUP} warm-up "
+        f"(min {min(times)!r}, max {max(times)!r}); peak device memory {peak} B "
+        f"({peak / 2**30:.3f} GiB); {seconds:.1f} s on {card}")
+    out["B2"] = {"step_ms": step_ms, "step_times": times, "peak_bytes": peak,
+                 "launches": launches, "seconds": seconds}
+
+    t0 = time.perf_counter()
+    label = f"phase B3 (soak {BIG_N}^3 ppc 2)"
+    cfg, state = big_state(label, ft.init_state, 2)
+    setup = time.perf_counter() - t0
+    y0 = float(state.pos[:, 1].mean())
+    say(f"{label}: {BIG_PARTICLES[2]} particles, dt={SOAK_DT!r}, {SOAK_STEPS} guarded steps; "
+        f"set-up {setup:.1f} s")
+    check, captured, times, trace = LaunchCheck(label), {}, [], []
+    for i in range(SOAK_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        if i == SOAK_STEPS - 1:
+            with capture(captured):
+                state, healthy = check.step(lambda: ft.step_guarded(state, SOAK_DT, cfg))
+        else:
+            state, healthy = check.step(lambda: ft.step_guarded(state, SOAK_DT, cfg))
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        if not bool(healthy):
+            raise AssertionError(f"{label}: step {i} is not healthy")
+        if (i + 1) % SOAK_EVERY == 0:
+            vmax = float(state.vel.abs().max())  # scripts/soak.py's |v|max
+            ymean = float(state.pos[:, 1].mean())
+            trace.append({"step": i + 1, "vmax": vmax, "mean_y": ymean})
+            say(f"{label}: step {i + 1}: healthy, |v|max {vmax!r} m/s (largest component), "
+                f"mean y {ymean!r} m")
+    launches = check.totals()
+    check_finite(label, state)
+    if not trace[-1]["mean_y"] < y0:
+        raise AssertionError(f"{label}: centre of mass did not fall "
+                             f"({y0} -> {trace[-1]['mean_y']})")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(times[N_WARMUP:])
+    say(f"{label}: healthy on all {SOAK_STEPS} steps, all fields finite; median step {step_ms!r} "
+        f"ms over {SOAK_STEPS - N_WARMUP} steps after {N_WARMUP} warm-up (min "
+        f"{min(times[N_WARMUP:])!r}, max {max(times[N_WARMUP:])!r}); peak device memory {peak} B "
+        f"({peak / 2**30:.3f} GiB) on {card}")
+    del state
+    torch.cuda.empty_cache()
+    kernels = {}
+    plain_oom = None
+    try:
+        check_kernels(table, ("p2g2",), captured, f"{BIG_N}^3 ppc 2", kernels, timed=("p2g2",),
+                      reported=("p2g2",))
+    except torch.cuda.OutOfMemoryError as e:
+        # The plain scatter's temporaries do not fit beside the inputs:
+        # phase 6 holds the kernel at 128^3 ppc 2 instead.
+        plain_oom = str(e).splitlines()[0]
+        say(f"{label}: P2G's plain version does not fit at {BIG_N}^3 ppc 2 ({plain_oom}); the "
+            "kernel is held against it at 128^3 ppc 2 (phase 6)")
+    del captured
+    fold_errors(results, kernels)
+    seconds = time.perf_counter() - t0
+    say(f"{label}: {seconds:.1f} s")
+    out["B3"] = {"step_ms": step_ms, "step_times": times, "peak_bytes": peak,
+                 "launches": launches, "trace": trace, "kernels": kernels,
+                 "plain_out_of_memory": plain_oom, "setup_seconds": setup, "seconds": seconds}
+    return out
+
 
 def main() -> int:
     # Phase 0: the card.
@@ -1383,6 +1934,15 @@ def main() -> int:
     render = render_phase(dev, main_phi, step_ms, demo_phi, demo_ms, card)
     torch.cuda.empty_cache()
     two_d = two_d_phase(table, results, card)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    app = app_phase(card)
+    say(f"phase P: {time.perf_counter() - t0:.1f} s")
+    del main_phi, demo_phi
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    big = big_phase(table, results, card)
+    say(f"phase B: {time.perf_counter() - t0:.1f} s")
 
     # Phase 8.
     symbol = {key: k["module"].KERNEL.symbol for key, k in table.items()}
@@ -1416,6 +1976,8 @@ def main() -> int:
         "apic": apic,
         "render": render,
         "two_d": two_d,
+        "app": app,
+        "big": big,
     }))
     say(json.dumps({
         "ok": True,

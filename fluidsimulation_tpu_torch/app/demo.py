@@ -7,7 +7,9 @@ cuda``); pass ``--device cpu`` to run the plain PyTorch versions of the
 kernels on the CPU. Without a card and without ``--device cpu`` it raises.
 The reference's interactive controls (FluidSimDemo.cpp:7-13) come as one
 command per line on stdin, read when stdin is a terminal or when
-FST_DEMO_STDIN is set:
+FST_DEMO_STDIN is set, and, with --serve PORT, from the live view's page
+(app/liveview.py: http://127.0.0.1:PORT/ streams the frames and posts
+drags, wheel turns and keys as these commands):
 
   +     double simulation speed  (GPFluidSim::IncreaseSpeed, clamp <= 1)
   -     halve simulation speed   (GPFluidSim::DecreaseSpeed)
@@ -17,11 +19,16 @@ FST_DEMO_STDIN is set:
   z DY  zoom (right-drag equivalent)
   q     quit
 
-A malformed command is ignored. With --render-every K, every K-th step
+Each step handles the line stdin holds and then the live view's queue, in
+that order, every command of them, and quits on 'q' only after them. A
+malformed command is ignored. With --render-every K, every K-th step
 renders a frame of the level set (render/raytrace.py::render_frame) to
-OUT/frame_NNNNN.ppm, a binary PPM. Every 10 steps it prints the step time
-and the Meter summary and checks the state; an anomaly resets the
-simulation, as 'r' does. With --save-state the final state goes to
+OUT/frame_NNNNN.ppm, a binary PPM, and publishes it to the live view.
+Every 10 steps it prints the step time and the Meter summary and checks
+the state; an anomaly resets the simulation, as 'r' does. --profile runs
+each step through utils/profiling.py::profile_step (profile_step_apic),
+with the frame's render timed as DRAW, and prints the reference's table of
+23 marks and the step time every step. With --save-state the final state goes to
 OUT/final_state.npz in the JAX package's checkpoint format. --transfer apic
 steps the APIC family (solver/apic.py) in place of PIC/FLIP, and saves an
 APIC checkpoint.
@@ -31,8 +38,10 @@ solver/apic2d.py) on a --grid x --grid grid, as the archival 2D demo
 FluidSimDemoOld.cpp does: the dam break with curl-noise initial velocities,
 dt = clip(--dt x --rate, 0, max_dt), frames of particle splats over a
 checkerboard (render/debug.py) to OUT/frame2d_NNNNN.ppm every
---render-every steps. As the JAX package's 2D loop, it reads no stdin
-commands, checks no state and saves no state.
+--render-every steps, each published to the live view. As the JAX
+package's 2D loop, it reads no stdin, takes + - r q from the live view
+(the other commands do nothing), checks no state, saves no state and
+ignores --profile.
 
 Usage:
   python -m fluidsimulation_tpu_torch --grid 64 --steps 120 \
@@ -61,6 +70,8 @@ from ..solver.step2d import step2d
 from ..solver.step3d import clamp_dt, step
 from ..utils.checkpoint import save_apic_state, save_state
 from ..utils.metrics import Meter, check_state
+from ..utils.profiling import profile_step, profile_step_apic
+from .liveview import LiveView
 
 
 def write_ppm(path: str, img: np.ndarray) -> None:
@@ -118,6 +129,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--two-d", action="store_true",
                     help="run the 2D solver (FluidSim / FluidSimDemoOld equivalent), rendering "
                     "particle splats over a checkerboard")
+    ap.add_argument("--profile", action="store_true",
+                    help="print the reference's per-stage table (23 marks) every step; 3D only")
+    ap.add_argument("--serve", type=int, default=0, metavar="PORT",
+                    help="live view: stream the frames at http://127.0.0.1:PORT/ and take its "
+                    "mouse orbit and zoom and its + - 0 r q keys as commands")
     return ap.parse_args(argv)
 
 
@@ -140,8 +156,9 @@ def main(argv=None) -> int:
     print(f"grid {cfg.nx}^3, {cfg.num_particles} particles on {dev}")
     if args.transfer == "apic":
         _init, _step, _save = init_apic_state, step_apic, save_apic_state
+        _profile = profile_step_apic
     else:
-        _init, _step, _save = init_state, step, save_state
+        _init, _step, _save, _profile = init_state, step, save_state, profile_step
     state = _init(cfg, dev)
     cam = OrbitCamera()
     rate = args.rate
@@ -149,56 +166,92 @@ def main(argv=None) -> int:
     # Temporal seed: the previous frame's march ts and the camera and
     # frame they are valid for (cleared on camera moves and resets).
     seed = {"t": None, "sig": None}
-
-    for i in range(args.steps):
-        cmd = _poll_stdin()
-        try:
-            if cmd == "+":
-                rate = min(rate * 2.0, 1.0)
-            elif cmd == "-":
-                # Clamp at the smallest denormal like DecreaseSpeed
-                # (Simulation.cpp:304-312).
-                rate = max(rate / 2.0, float(np.finfo(np.float32).smallest_subnormal))
-            elif cmd == "0":
-                cam.reset()
-            elif cmd == "r":
-                state = _init(cfg, dev)
-                seed["t"] = None  # the water jumps discontinuously
-            elif cmd == "q":
+    live = _serve(args)
+    try:
+        for i in range(args.steps):
+            cmds = [c for c in [_poll_stdin()] if c]
+            if live is not None:
+                cmds.extend(live.poll_cmds())
+            quit_now = False
+            for cmd in cmds:
+                try:
+                    if cmd in ("+", "-"):
+                        rate = _rate_after(cmd, rate)
+                    elif cmd == "0":
+                        cam.reset()
+                    elif cmd == "r":
+                        state = _init(cfg, dev)
+                        seed["t"] = None  # the water jumps discontinuously
+                    elif cmd == "q":
+                        quit_now = True
+                    elif cmd.startswith("o "):
+                        _, dx, dy = cmd.split()
+                        cam.orbit(float(dx), float(dy))
+                    elif cmd.startswith("z "):
+                        cam.zoom(float(cmd.split()[1]), args.height)
+                    else:
+                        print(f"ignoring unknown command: {cmd!r}")
+                except (ValueError, IndexError):
+                    print(f"ignoring malformed command: {cmd!r}")
+            if quit_now:
                 break
-            elif cmd and cmd.startswith("o "):
-                _, dx, dy = cmd.split()
-                cam.orbit(float(dx), float(dy))
-            elif cmd and cmd.startswith("z "):
-                cam.zoom(float(cmd.split()[1]), args.height)
-            elif cmd:
-                print(f"ignoring unknown command: {cmd!r}")
-        except (ValueError, IndexError):
-            print(f"ignoring malformed command: {cmd!r}")
 
-        dt = clamp_dt(cfg, args.dt, rate)
-        t0 = time.perf_counter()
-        state = _step(state, dt, cfg)
-        frame = None
-        if args.render_every and i % args.render_every == 0:
-            frame = _draw(args, cam, state.phi, seed)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        meter.tick()
-        step_ms = 1000 * (time.perf_counter() - t0)
-        if frame is not None:
-            write_ppm(os.path.join(args.out, f"frame_{i:05d}.ppm"), frame)
+            dt = clamp_dt(cfg, args.dt, rate)
+            frames = []
 
-        if i % 10 == 0:
-            print(f"step {i}: {step_ms:.1f} ms  ({meter.summary()})")
-            if not check_state(state):
+            def draw(s):
+                frames.append(_draw(args, cam, s.phi, seed))
+
+            render = bool(args.render_every) and i % args.render_every == 0
+            t0 = time.perf_counter()
+            if args.profile:
+                state, prof = _profile(state, dt, cfg, render_fn=draw if render else None)
+            else:
+                state = _step(state, dt, cfg)
+                if render:
+                    draw(state)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            meter.tick()
+            step_ms = 1000 * (time.perf_counter() - t0)
+            if args.profile:
+                print(prof.table())
+            if frames:
+                write_ppm(os.path.join(args.out, f"frame_{i:05d}.ppm"), frames[0])
+                if live is not None:
+                    live.publish(frames[0])
+
+            if i % 10 == 0 or args.profile:
+                print(f"step {i}: {step_ms:.1f} ms  ({meter.summary()})")
+            if i % 10 == 0 and not check_state(state):
                 print("anomaly detected; resetting (reference 'r' behavior)")
                 state = _init(cfg, dev)
+    finally:
+        if live is not None:
+            live.close()
 
     if args.save_state:
         _save(os.path.join(args.out, "final_state.npz"), state, cfg)
     print(meter.summary())
     return 0
+
+
+def _rate_after(cmd: str, rate: float) -> float:
+    """The simulation rate after '+' (doubled, at most 1:
+    GPFluidSim::IncreaseSpeed) or '-' (halved, at least the smallest
+    float32 denormal: DecreaseSpeed, Simulation.cpp:304-312)."""
+    if cmd == "+":
+        return min(rate * 2.0, 1.0)
+    return max(rate / 2.0, float(np.finfo(np.float32).smallest_subnormal))
+
+
+def _serve(args) -> LiveView | None:
+    """The live view on --serve's port, or None without --serve."""
+    if not args.serve:
+        return None
+    live = LiveView(args.serve)
+    print(f"live view: http://127.0.0.1:{live.port}/")
+    return live
 
 
 def _main_2d(args, dev) -> int:
@@ -211,19 +264,37 @@ def _main_2d(args, dev) -> int:
     else:
         init, step_fn = init_state2d, step2d
     state = init(cfg, dev)
+    rate = args.rate
     meter = Meter(cfg.num_particles)
-    for i in range(args.steps):
-        dt = float(np.clip(args.dt * args.rate, 0.0, cfg.max_dt))
-        t0 = time.perf_counter()
-        state = step_fn(state, dt, cfg)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        meter.tick()
-        if args.render_every and i % args.render_every == 0:
-            img = splat_particles_2d(state.pos, args.width, args.height)
-            write_ppm(os.path.join(args.out, f"frame2d_{i:05d}.ppm"), img.cpu().numpy())
-        if i % 10 == 0:
-            print(f"step {i}: {1000 * (time.perf_counter() - t0):.1f} ms ({meter.summary()})")
+    live = _serve(args)
+    try:
+        for i in range(args.steps):
+            quit_now = False
+            for cmd in live.poll_cmds() if live is not None else ():
+                if cmd in ("+", "-"):
+                    rate = _rate_after(cmd, rate)
+                elif cmd == "r":
+                    state = init(cfg, dev)
+                elif cmd == "q":
+                    quit_now = True
+            if quit_now:
+                break
+            dt = float(np.clip(args.dt * rate, 0.0, cfg.max_dt))
+            t0 = time.perf_counter()
+            state = step_fn(state, dt, cfg)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            meter.tick()
+            if args.render_every and i % args.render_every == 0:
+                img = splat_particles_2d(state.pos, args.width, args.height).cpu().numpy()
+                write_ppm(os.path.join(args.out, f"frame2d_{i:05d}.ppm"), img)
+                if live is not None:
+                    live.publish(img)
+            if i % 10 == 0:
+                print(f"step {i}: {1000 * (time.perf_counter() - t0):.1f} ms ({meter.summary()})")
+    finally:
+        if live is not None:
+            live.close()
     print(meter.summary())
     return 0
 

@@ -13,6 +13,11 @@ that time over the median step time without the profiler; the profiler's
 own host cost stretches the profiled steps, so their wall time is printed
 beside it but is not the share's denominator.
 
+The demo's --profile table is the reference's: profile_step and
+profile_step_apic run one step through the same sites and sum the stage
+times under the reference's profiler marks (MARKS, MARK_OF_STAGE), which
+StageProfiler.table prints as the JAX package does.
+
 The APIC step (solver/apic.py::step_apic) and the 2D steps
 (solver/step2d.py::step2d, solver/apic2d.py::step_apic2d) are timed the
 same way, through their own sites: stage_times and device_time step a
@@ -20,13 +25,14 @@ state by its family's step.
 
 Run on the card from the repository root:
 
-    python -m fluidsimulation_tpu_torch.utils.profiling [--transfer apic] [--two-d]
+    python -m fluidsimulation_tpu_torch.utils.profiling [--transfer apic] [--two-d] [--grid N]
 
 It prints, for the three configurations chip_smoke.py drives (128^3 ppc 1,
 the demo's 64^3 ppc 2, 128^3 ppc 2; with --transfer apic the APIC step at
 the first two; with --two-d the 2D step at the 2D demo's 64^2 and at
-512^2), the median time of each stage over steps 3-12 from the dam-break
-start, the median step, and the device time of steps 13-15, the busy share,
+512^2; with --grid N the one configuration N^3 ppc 1, or N^2), the
+median time of each stage over steps 3-12 from the dam-break start, the
+median step, and the device time of steps 13-15, the busy share,
 the device events a step (each a launch: the step's launch count) and the
 largest device events (kernels by name, the hand kernels among them) a
 step.
@@ -116,6 +122,69 @@ STAGES = stages_of(SITES)
 APIC_STAGES = stages_of(APIC_SITES)
 STAGES_2D = stages_of(SITES_2D)
 APIC2D_STAGES = stages_of(APIC2D_SITES)
+
+# The reference's profiler marks, the GPUProfilerMark enum
+# (GPUProfiler.h:16-44), in its order; copy of the JAX package's
+# utils/profiling.py::MARKS.
+MARKS = [
+    "ADVECT",
+    "TRANSFERPTG_CLEARCOUNTS",
+    "TRANSFERPTG_COUNTPARTICLES",
+    "TRANSFERPTG_PREFIXSUM_COPYMAP",
+    "TRANSFERPTG_PREFIXSUM_WAIT",
+    "TRANSFERPTG_PREFIXSUM_UNMAPUPDATE",
+    "TRANSFERPTG_BIN",
+    "TRANSFERPTG_LEVELSET_CLEAR",
+    "TRANSFERPTG_LEVELSET_ZERO",
+    "TRANSFERPTG_LEVELSET_SWEEP",
+    "TRANSFERPTG_VELOCITY",
+    "TRANSFERPTG_VELOCITY_EXTRAPOLATE",
+    "FLIP_COPYVELOCITIES",
+    "BODYFORCES",
+    "PROJECT_RHS",
+    "PROJECT_DIAGCOEFFS",
+    "PROJECT_PCLEAR",
+    "PROJECT_SOR",
+    "PROJECT_TOVELOCITY",
+    "FLIP_APPLY",
+    "BLURLEVELSET",
+    "DRAW",
+    "END_FRAME",
+]
+
+# Short column headers, as in the reference's console table
+# (FluidSimDemo.cpp:211).
+SHORT = [
+    "A", "TCC", "TCP", "TPC", "TPW", "TPU", "TB", "TLC", "TLZ", "TLS",
+    "TV", "TE", "FC", "B", "PR", "PD", "PP", "PS", "PTV", "FCV", "BLS",
+    "D", "EF",
+]
+
+# The mark each stage of SITES and APIC_SITES is timed under. The CSR index
+# and its sorted gather do the work of the reference's count, prefix-sum and
+# bin trio, so the marks CLEARCOUNTS, COUNTPARTICLES and the three PREFIXSUM
+# marks stay 0, as in the JAX package; so do LEVELSET_CLEAR,
+# FLIP_COPYVELOCITIES and PROJECT_PCLEAR, which it never times either.
+MARK_OF_STAGE = {
+    "advect (RK3)": "ADVECT",
+    "CSR build": "TRANSFERPTG_BIN",
+    "sorted gather": "TRANSFERPTG_BIN",
+    "own-cell seed": "TRANSFERPTG_LEVELSET_ZERO",
+    "27-neighbourhood pass": "TRANSFERPTG_LEVELSET_ZERO",
+    "24 sweeps": "TRANSFERPTG_LEVELSET_SWEEP",
+    "P2G": "TRANSFERPTG_VELOCITY",
+    "APIC P2G": "TRANSFERPTG_VELOCITY",
+    "extrapolate": "TRANSFERPTG_VELOCITY_EXTRAPOLATE",
+    "gravity": "BODYFORCES",
+    "RHS": "PROJECT_RHS",
+    "diagonal": "PROJECT_DIAGCOEFFS",
+    "SOR": "PROJECT_SOR",
+    "apply pressure": "PROJECT_TOVELOCITY",
+    "FLIP": "FLIP_APPLY",
+    "APIC G2P": "FLIP_APPLY",
+    "blur": "BLURLEVELSET",
+}
+STAGE_MARKS = list(dict.fromkeys(MARK_OF_STAGE.values()))  # the 13 marks a step times
 
 
 def _stepper(state):
@@ -211,6 +280,91 @@ def stage_times(state, dt, cfg, n_steps: int):
     return state, per_step, totals
 
 
+class StageProfiler:
+    """One step's seconds under each of MARKS (the JAX package's
+    StageProfiler; DT mirrors GPUProfiler::DT). A mark never timed reads
+    0.0."""
+
+    def __init__(self, device="cpu"):
+        self.times: dict[str, float] = {m: 0.0 for m in MARKS}
+        self.device = torch.device(device)
+
+    def timed(self, mark: str, fn, *args, **kwargs):
+        """fn(*args, **kwargs), its time stored under ``mark``: the
+        CUDA-event interval of its work on the card (read after a
+        synchronize), the host clock on the CPU."""
+        start = _Clock(self.device)
+        out = fn(*args, **kwargs)
+        end = _Clock(self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.times[mark] = start.ms_until(end) / 1e3
+        return out
+
+    def DT(self, mark: str) -> float:
+        return self.times.get(mark, 0.0)
+
+    def table(self) -> str:
+        """The reference's console table (FluidSimDemo.cpp:211-236), in the
+        JAX package's format: a header of SHORT and a row of ms."""
+        head = "GPU time:\t" + "\t".join(f"{s:<6}" for s in SHORT)
+        vals = "GPU time:\t" + "\t".join(f"{1000.0 * self.times[m]:.2f}ms" for m in MARKS)
+        return head + "\n" + vals
+
+
+def _profile(step, sites, state, dt, cfg, render_fn):
+    """One ``step`` with its stages marked at ``sites``; the stages' times
+    summed under their marks (MARK_OF_STAGE), render_fn(new_state) under
+    DRAW, and the closing wait for the card under END_FRAME."""
+    device = state.pos.device
+    prof = StageProfiler(device)
+    marks: list = []
+    with stage_marks(device, marks, sites):
+        new_state = step(state, dt, cfg)
+    if render_fn is not None:
+        prof.timed("DRAW", render_fn, new_state)
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.times["END_FRAME"] = time.perf_counter() - t0
+    for label, start, stop in marks:
+        prof.times[MARK_OF_STAGE[label]] += start.ms_until(stop) / 1e3
+    return new_state, prof
+
+
+def profile_step(state, dt, cfg, render_fn=None):
+    """Run ``step`` once with its stages timed under the reference's marks
+    (the JAX package's profile_step). Returns (the state ``step`` returns,
+    bit for bit, and a StageProfiler).
+
+    The step is the port's own, run whole: each stage call is bracketed by
+    CUDA events on the card (by the host clock on the CPU) where the step
+    looks it up (SITES), and a mark's time is the sum of its stages'
+    intervals (MARK_OF_STAGE). TRANSFERPTG_BIN is the CSR build and the
+    sorted gather; TRANSFERPTG_LEVELSET_ZERO the own-cell seed and the
+    27-neighbourhood pass; TRANSFERPTG_VELOCITY_EXTRAPOLATE all three
+    grids' extrapolation, where the JAX package times only u's. Because the
+    stages are not separated by waits, a mark holds its kernels and the
+    gaps in which the card waited for the host to launch them.
+    ``render_fn(new_state)``, if given, is timed as DRAW (the reference's
+    DrawScene, FluidSimDemo.cpp:175-208); END_FRAME is the host's closing
+    wait for the card (the reference's blocking profiler collect,
+    GPUProfiler.cpp:49-84), a call that returns at once on the CPU. The
+    marks the JAX package never times read 0.0 (MARK_OF_STAGE)."""
+    from ..solver.step3d import step
+
+    return _profile(step, SITES, state, dt, cfg, render_fn)
+
+
+def profile_step_apic(state, dt, cfg, render_fn=None):
+    """profile_step for the APIC step (solver/apic.py::step_apic), through
+    APIC_SITES: TRANSFERPTG_VELOCITY is the APIC P2G, FLIP_APPLY the APIC
+    G2P; FLIP_COPYVELOCITIES stays 0 (APIC keeps no old grids)."""
+    from ..solver.apic import step_apic
+
+    return _profile(step_apic, APIC_SITES, state, dt, cfg, render_fn)
+
+
 def device_time(state, dt, cfg, n_steps: int):
     """Device time and wall time of n_steps steps (of the state's family)
     under torch.profiler. Returns (state, device ms a step, profiled wall
@@ -248,6 +402,9 @@ def main(argv=None) -> int:
                     help="the step to time: PIC/FLIP (step) or APIC (step_apic)")
     ap.add_argument("--two-d", action="store_true",
                     help="time the 2D step (step2d, or step_apic2d with --transfer apic)")
+    ap.add_argument("--grid", type=int, default=0,
+                    help="time one configuration: N^3 ppc 1 at dt 1/60 (with --two-d N^2 at "
+                    "dt 1/120) in place of the default ones")
     args = ap.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -262,6 +419,8 @@ def main(argv=None) -> int:
         init = ft.init_apic_state2d if args.transfer == "apic" else ft.init_state2d
     elif args.transfer == "apic":
         configs, init = configs[:2], ft.init_apic_state
+    if args.grid:
+        configs = ((args.grid, None if args.two_d else 1, configs[0][2]),)
     for n, ppc, dt in configs:
         if args.two_d:
             cfg, shape = ft.SimConfig2D(nx=n, ny=n, cells_per_meter=float(n)), f"{n}^2"

@@ -119,6 +119,14 @@ def test_port_imports_no_jax(code):
     assert proc.returncode == 0, proc.stderr
 
 
+@pytest.mark.parametrize("ppc,particles", [(1, 8_193_532), (2, 65_548_256)])
+def test_particle_counts_at_256(ppc, particles):
+    """The 256^3 dam break chip_smoke.py phase B steps: 127 x 254 x 254
+    cells of ppc^3 particles, as the JAX config counts them."""
+    kw = dict(nx=256, ny=256, nz=256, cells_per_meter=256.0, particles_per_cell_axis=ppc)
+    assert ft.SimConfig(**kw).num_particles == JaxConfig(**kw).num_particles == particles
+
+
 def test_chip_smoke_refuses_without_card():
     """chip_smoke.py exits non-zero and prints no result without CUDA."""
     if torch.cuda.is_available():

@@ -115,9 +115,58 @@ def test_jax_checkpoint_loads_in_port_bit_exact(tmp_path):
         checkpoint.load_state(path, "cpu", ft.SimConfig(nx=8, ny=8, nz=8, cells_per_meter=8.0))
 
 
-@pytest.mark.parametrize("flag", [["--serve", "8000"], ["--two-d", "--serve", "8000"],
-                                  ["--two-d", "--profile"], ["--profile"]])
+@pytest.mark.parametrize("shape", [(5, 4, 3), (6, 5), (1, 1, 1)], ids=["3d", "2d", "one"])
+def test_tsv_export_is_jax_bytes_and_round_trips(tmp_path, shape):
+    """export_array_tsv writes JAX's bytes for the same float32 array, from
+    a tensor or an array (values of every magnitude, -0.0, inf and NaN);
+    import_array_tsv reads them back bit for bit as a float32 tensor on the
+    device asked for, and reads JAX's file the same."""
+    rng = np.random.default_rng(5)
+    arr = (rng.standard_normal(shape) * 10.0 ** rng.integers(-8, 8, shape)).astype(np.float32)
+    flat = arr.reshape(-1)
+    flat[:3] = [-0.0, np.inf, np.nan][: flat.size]
+    jax_path, port_path = str(tmp_path / "jax.tsv"), str(tmp_path / "port.tsv")
+    jax_cp.export_array_tsv(jax_path, arr)
+    for given in (torch.from_numpy(arr), arr):
+        checkpoint.export_array_tsv(port_path, given)
+        assert Path(port_path).read_bytes() == Path(jax_path).read_bytes()
+    for path in (port_path, jax_path):
+        back = checkpoint.import_array_tsv(path, shape, "cpu")
+        assert back.dtype == torch.float32 and back.device.type == "cpu"
+        assert tuple(back.shape) == shape
+        np.testing.assert_array_equal(back.numpy().view(np.int32), arr.view(np.int32))
+        np.testing.assert_array_equal(back.numpy(), jax_cp.import_array_tsv(path, shape))
+
+
+def test_tsv_particles_and_l2_match_jax(tmp_path):
+    """export_particles_tsv writes JAX's bytes for a state's particles;
+    l2_norm_diff sums in float64 and is JAX's within 1e-12 relative, on
+    tensors and arrays; 0 for a grid and its TSV round trip."""
+    s = ft.step(ft.init_state(CFG, "cpu"), 0.01, CFG)
+    jax_cp.export_particles_tsv(str(tmp_path / "jax.tsv"), s.pos.numpy(), s.vel.numpy())
+    checkpoint.export_particles_tsv(str(tmp_path / "port.tsv"), s.pos, s.vel)
+    data = (tmp_path / "port.tsv").read_bytes()
+    assert data == (tmp_path / "jax.tsv").read_bytes()
+    assert data.count(b"\n") == CFG.num_particles
+    a, b = s.u, ft.init_state(CFG, "cpu").u
+    want = jax_cp.l2_norm_diff(a.numpy(), b.numpy())
+    for x, y in ((a, b), (a.numpy(), b.numpy())):
+        got = checkpoint.l2_norm_diff(x, y)
+        assert isinstance(got, float) and got > 0
+        assert abs(got - want) <= 1e-12 * want
+    big = np.full(4, 3e38, np.float32)
+    assert checkpoint.l2_norm_diff(big, -big) == pytest.approx(1.2e39)
+    checkpoint.export_array_tsv(str(tmp_path / "u.tsv"), s.u)
+    assert checkpoint.l2_norm_diff(
+        checkpoint.import_array_tsv(str(tmp_path / "u.tsv"), tuple(s.u.shape), "cpu"), s.u) == 0.0
+
+
+@pytest.mark.parametrize("flag", [["--renderer", "tiled"], ["--renderer", "wavefront"],
+                                  ["--overflow-cap", "64"]])
 def test_flags_of_unported_slices_are_refused(flag):
+    """The JAX demo's flags of what the port leaves behind (the wavefront
+    renderer and the slot tables' overflow cap) are refused, not
+    ignored."""
     with pytest.raises(SystemExit) as e:
         main([*flag, "--device", "cpu", "--steps", "0"])
     assert e.value.code != 0
