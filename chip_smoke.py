@@ -5,12 +5,13 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the six hand-written CUDA kernels from csrc/, compares each with
-its plain PyTorch version on the card, and drives five 3D paths of the
-port, the 2D family's, the demo's --profile and --serve and three 256^3
-paths, each with the launch counts set to 0 just before
-it and read just after, and renders 800x600 frames of the level sets of
-the first two:
+It builds the hand-written CUDA kernels from csrc/ (six, and the slab
+entries of two of them), compares each with its plain PyTorch version on
+the card, and drives five 3D paths of the port, the 2D family's, the
+demo's --profile and --serve, three 256^3 paths and the multi-rank family
+(phase M), each with the launch counts set to 0 just before it and read
+just after, and renders 800x600 frames of the level sets of the first
+two:
 
   * the 128^3 dam break (1,000,188 particles, ppc 1, dt = 1/60) through
     ``step``, 20 steps;
@@ -123,8 +124,27 @@ Phases, each printing before the next:
      median step and peak, then P2G's ppc >= 2 path vs its plain version
      on the last step's inputs (if the plain version does not fit, the
      bytes it asked for are printed; phase 6 holds it at 128^3 ppc 2)
+  M  the multi-rank family (parallel/, render/sharded.py), after phase B:
+     4 ranks over gloo sharing the card (NCCL refuses two ranks of one
+     communicator on one card; gloo's send/recv take no CUDA tensor, so
+     the point-to-point planes are staged through host buffers), spawned
+     once after the build: M1, the FLIP halo step at 128^3 ppc 1
+     (250,047 particles and 32 x-planes a rank), 3 steps; M2, the APIC
+     halo step, 2 steps; M3, the demo's 64^3 ppc 2, 2 FLIP steps; each
+     against the one-device steps on the card (FLIP: pos 1e-6, the rest
+     1e-4, and it is bit for bit; APIC: apic_bound, beside two one-device
+     runs' own difference), no particle dropped, every rank launching the
+     pass, P2G and the FLIP gather once, fst_sweeps 8 times (y/z),
+     fst_sweep_x_carry 8 (the relayed x-sweeps) and fst_sor_half 200 a
+     step, fst_sor and the pack never; the two new entries against their
+     plain versions on every rank's last inputs, and timed alone on rank
+     1's; M4, the halo SOR at 128^3 against fst_sor; M5, an 800x600
+     sharded frame of the 128^3 phi, bit for bit the tiled one; M6, a world
+     of one NCCL rank, the FLIP halo step against the one-device step.
+     Times are 4 ranks sharing one H100, not a speed across cards
   8  {"kernels": [...], "apic": {...}, "render": {...}, "two_d": {...},
-     "app": {...}, "big": {...}} and then {"ok": true, "device": {...}}
+     "app": {...}, "big": {...}, "multi": {...}} and then
+     {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -198,6 +218,16 @@ BIG_APIC_STEPS, BIG_APIC_WARMUP = 4, 1
 SOAK_DT = 1.0 / 240.0
 SOAK_STEPS = 20
 SOAK_EVERY = 5  # steps between the soak's |v|max and mean-y lines
+
+MULTI_RANKS = 4  # phase M: gloo ranks sharing the one card
+MULTI_DEMO_N = 64  # the demo's grid (ppc 2, DEMO_PARTICLES)
+MULTI_FLIP_STEPS, MULTI_APIC_STEPS, MULTI_DEMO_STEPS = 3, 2, 2
+# The multi-rank FLIP step against the one-device step on the card: the
+# JAX package's bounds (tests/test_parallel.py:69-74; it is bit for bit).
+# The APIC step's P2G sums by index_add_, whose atomics add in no fixed order
+# on the card, so two one-device APIC runs differ too (printed beside):
+# phase A's card bound (apic_bound).
+MULTI_FLIP_BOUNDS = ({"pos": 1e-6}, 1e-4)
 
 # H100 SXM data-sheet peaks at 700 W: device memory rate, and float32
 # outside the tensor cores (every kernel here is float32 arithmetic).
@@ -408,6 +438,24 @@ def bound(key: str, args) -> tuple[float, str]:
         nbytes, ops = 4 * 4 * cells, 11 * fluid * cfg.sor_iterations
     elif key == "pack":
         nbytes, ops = 4 * faces + 4 * 64 * cfg.nx * cfg.ny * (cfg.nz - 1), 0
+    elif key == "sweep_x":
+        # One x-sweep of a slab: phi and cpos read and written, the carry
+        # plane read and the last plane written.
+        phi = args[1]
+        cells, plane = phi.numel(), phi[0].numel()
+        nbytes, ops = 2 * (4 + 12) * cells + 2 * 12 * plane, 11 * cells
+    elif key == "sor_half":
+        # One half-update of a slab: p, phi, diag and b read, p written, the
+        # four halo planes read; 11 operations a fluid cell of the colour.
+        cfg, p, phi = args[0], args[1], args[4]
+        cells, plane = p.numel(), p[0].numel()
+        x0, color = args[9], args[10]
+        sx, ny, nz = p.shape
+        parity = ((x0 + torch.arange(sx, device=p.device))[:, None, None]
+                  + torch.arange(ny, device=p.device)[None, :, None]
+                  + torch.arange(nz, device=p.device)[None, None, :]) % 2
+        fluid = int(((phi < 0) & (parity == color)).sum())
+        nbytes, ops = 5 * 4 * cells + 4 * 4 * plane, 11 * fluid
     else:
         raise KeyError(key)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
@@ -1831,6 +1879,236 @@ def big_phase(table, results, card) -> dict:
     return out
 
 
+def multi_launches(family: str) -> dict:
+    """Kernel symbol -> launches a rank makes in one multi-rank step: the
+    pass, P2G and the FLIP gather on its slab (P2G and the gather not in
+    APIC), the y/z sweeps in 8 calls, the 8 relayed x-sweeps, 2 x 100 SOR
+    half-updates; fst_sor and the pack never."""
+    flip = family == "flip"
+    return {"fst_neighborhood_pass": 1, "fst_sweeps": 8, "fst_sweep_x_carry": 8,
+            "fst_p2g": int(flip), "fst_sor": 0, "fst_sor_half": 200,
+            "fst_g2p_flip": int(flip), "fst_pack_mac3_combined": 0}
+
+
+def multi_held(label: str, got: dict, want, family: str, cfg) -> dict:
+    """The gathered multi-rank state against the one-device state on the
+    card (MULTI_FLIP_BOUNDS, apic_bound)."""
+    bounds, rest = MULTI_FLIP_BOUNDS
+    diffs = {}
+    for name, arr in got.items():
+        d = float((torch.from_numpy(arr) - getattr(want, name).cpu()).abs().max())
+        limit = apic_bound(name, cfg) if family == "apic" else bounds.get(name, rest)
+        if not d <= limit:
+            raise AssertionError(f"{label}: {name} differs from the one-device step by {d} > {limit}")
+        diffs[name] = d
+    say(f"{label}: vs the one-device step on the card, max abs diff: "
+        + ", ".join(f"{k} {v!r}" for k, v in diffs.items()))
+    return diffs
+
+
+def multi_steps(label: str, res: list, family: str, ref, n_steps: int, cfg) -> dict:
+    """Phase M's checks of one multi-rank run: no particle dropped, each
+    rank's launches every step as expected, the state within the bounds;
+    prints each rank's launches and step times."""
+    want = multi_launches(family)
+    for r in res:
+        if any(r["dropped"]):
+            raise AssertionError(f"{label}: rank {r['rank']} dropped {r['dropped']}")
+        for i, got in enumerate(r["launches"]):
+            wanted = {k: v for k, v in want.items() if k in got}
+            if got != wanted:
+                raise AssertionError(f"{label}: rank {r['rank']} step {i} launched {got}, "
+                                     f"expected {wanted}")
+        say(f"{label} rank {r['rank']}: launches per step {r['launches'][-1]}; collectives per "
+            f"step {r['calls'][-1]}; step ms {r['ms']!r}")
+    step_ms = [max(r["ms"][i] for r in res) for i in range(n_steps)]
+    diffs = multi_held(label, res[0]["state"], ref, family, cfg)
+    return {"step_ms": step_ms, "max_abs_diff": diffs, "launches_per_step": res[0]["launches"][-1],
+            "calls_per_step": [r["calls"][-1] for r in res]}
+
+
+def one_device(family: str, cfg, n_steps: int, dev):
+    """The one-device steps on the card from the dam break without k1 (the
+    multi-rank step runs advection uncached)."""
+    import fluidsimulation_tpu_torch as ft
+    from fluidsimulation_tpu_torch.parallel.runs import whole_state
+
+    state = whole_state(family, cfg, dev)
+    fn = ft.step_apic if family == "apic" else ft.step
+    for _ in range(n_steps):
+        state = fn(state, DT, cfg)
+    torch.cuda.synchronize()
+    return state
+
+
+def multi_entries(inputs: dict, res: list, results: dict, card: str) -> None:
+    """The two slab entries on rank 1's last inputs, here alone on the card:
+    against their plain versions (bit for bit), timed, bounded; the ranks'
+    own checks folded into the error."""
+    import numpy as np
+
+    from fluidsimulation_tpu_torch.ops import cuda_sor, cuda_sweep
+
+    dev = torch.device(DEVICE)
+
+    def on_card(args):
+        return [torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a for a in args]
+
+    cases = {
+        "sweep_x": (cuda_sweep.sweep_x_carry, cuda_sweep.sweep_x_carry_plain,
+                    on_card(inputs["carry"]), "sweep_x_carry"),
+        "sor_half": (cuda_sor.sor_half, cuda_sor.sor_half_plain, on_card(inputs["half"]),
+                     "sor_half"),
+    }
+    for key, (kernel, plain, args, name) in cases.items():
+        if key == "sor_half":
+            p0 = args[1]
+            got = kernel(args[0], p0.clone(), *args[2:])
+            want = plain(args[0], p0.clone(), *args[2:])
+            pairs = [(got, want)]
+            run_k = lambda: kernel(args[0], p0.clone(), *args[2:])  # noqa: E731
+            run_p = lambda: plain(args[0], p0.clone(), *args[2:])  # noqa: E731
+        else:
+            pairs = list(zip(kernel(*args), plain(*args)))
+            run_k = lambda: kernel(*args)  # noqa: E731
+            run_p = lambda: plain(*args)  # noqa: E731
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in pairs)
+        if not all(torch.equal(g, w) for g, w in pairs):
+            raise AssertionError(f"phase M {name}: not bit-exact vs its plain version ({err})")
+        rank_errs = [r["entries"][name] for r in res]
+        if not all(exact for _, exact in rank_errs):
+            raise AssertionError(f"phase M {name}: a rank's check not bit-exact: {rank_errs}")
+        err = max([err] + [e for e, _ in rank_errs])
+        ms = device_ms(run_k, 20)
+        plain_ms = cuda_ms(run_p, 5)
+        b_ms, b_by = bound(key, args)
+        results[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by}
+        say(f"phase M {name} on rank 1's last inputs (shape {tuple(args[1].shape)}), alone on the "
+            f"card: bit-exact vs its plain version (every rank's check too), kernel {ms!r} ms of "
+            f"device time, plain {plain_ms!r} ms, bound {b_ms!r} ms ({b_by}) on {card}")
+
+
+def multi_phase(results: dict, card: str) -> dict:
+    """Phase M: the multi-rank family (parallel/, render/sharded.py) over
+    MULTI_RANKS gloo ranks sharing the card, each rank's slab on the hand
+    kernels; then a world of one NCCL rank."""
+    import numpy as np
+
+    import fluidsimulation_tpu_torch as ft
+    from fluidsimulation_tpu_torch.ops.cuda_sor import sor_pressure
+    from fluidsimulation_tpu_torch.ops.project import compute_diag, compute_rhs
+    from fluidsimulation_tpu_torch.parallel import comm, runs
+    from fluidsimulation_tpu_torch.render.camera import OrbitCamera
+    from fluidsimulation_tpu_torch.render.raytrace import render
+
+    t_all = time.perf_counter()
+    dev = torch.device(DEVICE)
+    d = MULTI_RANKS
+    staging = ("point-to-point planes staged through host buffers (gloo's send/recv take no "
+               "CUDA tensor: comm.GLOO_TAKES_CUDA); all_gather and all_reduce take the CUDA "
+               "tensors")
+    say(f"phase M: {d} ranks, backend gloo, all on the one card ({card}): NCCL refuses two "
+        f"ranks of one communicator on one card; {staging}. Times below are {d} ranks sharing "
+        f"one H100, not a speed across cards")
+    out = {"ranks": d, "backend": "gloo", "device": "one card shared", "staging": staging}
+    main = ft.SimConfig(nx=MAIN_N, ny=MAIN_N, nz=MAIN_N, cells_per_meter=float(MAIN_N),
+                        particles_per_cell_axis=1)
+    demo = ft.SimConfig(nx=MULTI_DEMO_N, ny=MULTI_DEMO_N, nz=MULTI_DEMO_N,
+                        cells_per_meter=float(MULTI_DEMO_N), particles_per_cell_axis=2)
+    if main.num_particles != MAIN_PARTICLES or demo.num_particles != DEMO_PARTICLES:
+        raise AssertionError("phase M: unexpected particle counts")
+    ref = one_device("flip", main, MULTI_FLIP_STEPS, dev)
+
+    t0 = time.perf_counter()
+    with comm.Ranks(d, "gloo", "cuda") as ranks:
+        say(f"phase M: {d} ranks up in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        res = m1 = ranks.run(runs.halo_run, "flip", main, MULTI_FLIP_STEPS, DT,
+                             check_entries=True, inputs_rank=1)
+        label = (f"phase M1 (FLIP halo step, {MAIN_N}^3 ppc 1, {MAIN_PARTICLES} particles, "
+                 f"{MAIN_PARTICLES // d} a rank, slabx {MAIN_N // d})")
+        out["M1"] = multi_steps(label, res, "flip", ref, MULTI_FLIP_STEPS, main)
+        out["M1"]["launches"] = {k: sum(sum(step[k] for step in r["launches"]) for r in res)
+                                 for k in res[0]["launches"][0]}
+        for r in res:
+            say(f"{label} rank {r['rank']}: new entries vs their plain versions on its last "
+                f"inputs: {r['entries']}")
+        inputs = res[1]["inputs"]
+        out["M1"]["seconds"] = time.perf_counter() - t0
+        say(f"{label}: median step {statistics.median(out['M1']['step_ms'])!r} ms (slowest rank "
+            f"a step), {d} ranks sharing one card; {out['M1']['seconds']:.1f} s")
+
+        t0 = time.perf_counter()
+        aref = one_device("apic", main, MULTI_APIC_STEPS, dev)
+        again = one_device("apic", main, MULTI_APIC_STEPS, dev)
+        noise = {f.name: float((getattr(again, f.name) - getattr(aref, f.name)).abs().max())
+                 for f in dataclasses.fields(aref)}
+        say(f"phase M2: two one-device APIC runs on the card differ by (atomics): {noise}")
+        res = ranks.run(runs.halo_run, "apic", main, MULTI_APIC_STEPS, DT)
+        out["M2"] = multi_steps(f"phase M2 (APIC halo step, {MAIN_N}^3 ppc 1)", res, "apic",
+                                aref, MULTI_APIC_STEPS, main)
+        out["M2"]["one_device_run_to_run"] = noise
+        del aref, again
+        out["M2"]["seconds"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        dref = one_device("flip", demo, MULTI_DEMO_STEPS, dev)
+        res = ranks.run(runs.halo_run, "flip", demo, MULTI_DEMO_STEPS, DT)
+        out["M3"] = multi_steps(f"phase M3 (FLIP halo step, demo {MULTI_DEMO_N}^3 ppc 2, "
+                                f"{DEMO_PARTICLES} particles)", res, "flip", dref,
+                                MULTI_DEMO_STEPS, demo)
+        del dref
+        out["M3"]["seconds"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        diag = compute_diag(main, ref.phi)
+        b = compute_rhs(main, ref.u, ref.v, ref.w, DT)
+        want = sor_pressure(main, ref.phi, diag, b).cpu().numpy()
+        res = ranks.run(runs.sor_run, main, *(t.cpu().numpy() for t in (ref.phi, diag, b)),
+                        repeats=3)
+        err = float(np.abs(res[0]["p"] - want).max())
+        if not err <= 1e-5:
+            raise AssertionError(f"phase M4: the halo SOR differs from fst_sor by {err}")
+        sor_ms = [max(r["ms"][i] for r in res) for i in range(3)]
+        out["M4"] = {"max_abs_diff": err, "ms": sor_ms, "launches": res[0]["launches"],
+                     "calls": res[0]["calls"]}
+        say(f"phase M4 (halo SOR, {MAIN_N}^3, 100 iterations): max abs diff vs fst_sor {err!r}; "
+            f"a rank's launches {res[0]['launches']['fst_sor_half']} of fst_sor_half and "
+            f"{res[0]['calls']['exchange_x']} exchanges; {sor_ms!r} ms a solve (slowest rank), "
+            f"{d} ranks sharing one card; {time.perf_counter() - t0:.1f} s on {card}")
+
+        t0 = time.perf_counter()
+        cam = OrbitCamera().frame(WIDTH, HEIGHT)
+        res = ranks.run(runs.render_run, ref.phi.cpu().numpy(), cam, WIDTH, HEIGHT, 100, 100)
+        render_ms = max(r["ms"][0] for r in res)
+        start = time.perf_counter()
+        tiled = render(ref.phi, *cam, WIDTH, HEIGHT, band_rows=100, band_cols=100).cpu().numpy()
+        tiled_ms = 1e3 * (time.perf_counter() - start)
+        if not np.array_equal(res[0]["image"], tiled):
+            raise AssertionError("phase M5: the sharded frame is not the tiled frame bit for bit")
+        out["M5"] = {"ms": render_ms, "tiled_one_process_ms": tiled_ms, "bit_equal": True}
+        tiles = -(-WIDTH // 100) * -(-HEIGHT // 100)
+        say(f"phase M5 (sharded render, {WIDTH}x{HEIGHT}, {tiles} tiles of 100x100 over {d} ranks): "
+            f"bit for bit the tiled frame; {render_ms!r} ms a frame ({d} ranks sharing one card) "
+            f"beside {tiled_ms!r} ms for the tiled frame in one process; "
+            f"{time.perf_counter() - t0:.1f} s on {card}")
+
+    multi_entries(inputs, m1, results, card)
+    out["M1"]["new_entries"] = {k: results[k] for k in ("sweep_x", "sor_half")}
+    t0 = time.perf_counter()
+    res = comm.run_ranks(runs.halo_run, 1, "nccl", "cuda", "flip", main, MULTI_FLIP_STEPS, DT)
+    out["M6"] = multi_steps(f"phase M6 (one NCCL rank, FLIP halo step, {MAIN_N}^3 ppc 1)", res,
+                            "flip", ref, MULTI_FLIP_STEPS, main)
+    out["M6"]["seconds"] = time.perf_counter() - t0
+    del ref
+    out["seconds"] = time.perf_counter() - t_all
+    say(f"phase M: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     # Phase 0: the card.
     if not torch.cuda.is_available():
@@ -1943,6 +2221,8 @@ def main() -> int:
     t0 = time.perf_counter()
     big = big_phase(table, results, card)
     say(f"phase B: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    multi = multi_phase(results, card)
 
     # Phase 8.
     symbol = {key: k["module"].KERNEL.symbol for key, k in table.items()}
@@ -1958,6 +2238,19 @@ def main() -> int:
         }
         for key, k in table.items()
     ]
+    for key, name, symbol, source, replaces in (
+        ("sweep_x", "sweep_x_carry", "fst_sweep_x_carry", "fluidsimulation_tpu_torch/csrc/sweep.cu",
+         "fluidsimulation_tpu/ops/pallas_sweep.py:30"),
+        ("sor_half", "sor_half", "fst_sor_half", "fluidsimulation_tpu_torch/csrc/sor.cu",
+         "fluidsimulation_tpu/ops/pallas_sor.py:68"),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": multi["M1"]["launches"][symbol],
+            **{k: results[key][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                            "bound_by")},
+            "library_ms": None,
+        })
     kernels.append({
         "name": "pack_mac3_combined", "route": "cuda",
         "source": "fluidsimulation_tpu_torch/csrc/pack.cu",
@@ -1978,6 +2271,7 @@ def main() -> int:
         "two_d": two_d,
         "app": app,
         "big": big,
+        "multi": multi,
     }))
     say(json.dumps({
         "ok": True,

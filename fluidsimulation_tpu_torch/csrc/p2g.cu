@@ -212,7 +212,7 @@ p2g_tile_kernel(const float* __restrict__ pcs, const float* __restrict__ vels,
                 const int* __restrict__ start, float* __restrict__ acc_u,
                 float* __restrict__ amt_u, float* __restrict__ acc_v,
                 float* __restrict__ amt_v, float* __restrict__ acc_w,
-                float* __restrict__ amt_w, int nx, int ny, int nz) {
+                float* __restrict__ amt_w, int nx, int ny, int nz, int xo) {
   extern __shared__ float smem[];
   float* buffers = smem;  // [2][x, y, z, vx, vy, vz][kField]
   // first[c * kZ + zl]: global CSR slot of halo cell zl (z = z0 - 1 + zl,
@@ -275,7 +275,9 @@ p2g_tile_kernel(const float* __restrict__ pcs, const float* __restrict__ vels,
 
   const bool active = i < nx && j < ny && k < nz;
   const bool ex = i == nx - 1, ey = j == ny - 1, ez = k == nz - 1;
-  const float fi = static_cast<float>(i), fj = static_cast<float>(j), fk = static_cast<float>(k);
+  // The particles' x is in the frame of the domain, whose plane xo is the
+  // grid's plane 0 (a rank's extended slab; 0 for a whole grid).
+  const float fi = static_cast<float>(i + xo), fj = static_cast<float>(j), fk = static_cast<float>(k);
   Sums s;
 
   if (chunks > 0) load(0);
@@ -339,15 +341,19 @@ p2g_tile_kernel(const float* __restrict__ pcs, const float* __restrict__ vels,
 
 }  // namespace
 
+// x0: the grid's plane 0 is plane x0 of the domain, in whose cell units pcs
+// are (a rank's extended slab in parallel/halo_step.py): the CSR runs are
+// the grid's cells, floor(p + 0.5) - x0 along x. 0 for a whole grid.
 extern "C" int fst_p2g(const float* pcs, const float* vels, const int* start,
                        float* acc_u, float* amt_u, float* acc_v, float* amt_v,
-                       float* acc_w, float* amt_w, int nx, int ny, int nz, void* stream) {
+                       float* acc_w, float* amt_w, int nx, int ny, int nz, int x0,
+                       void* stream) {
   if (nx <= 0 || ny <= 0 || nz <= 0) return static_cast<int>(cudaGetLastError());
   const cudaError_t err = cudaFuncSetAttribute(
       p2g_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((nx + kTX - 1) / kTX, (ny + kTY - 1) / kTY, (nz + kTZ - 1) / kTZ);
   p2g_tile_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      pcs, vels, start, acc_u, amt_u, acc_v, amt_v, acc_w, amt_w, nx, ny, nz);
+      pcs, vels, start, acc_u, amt_u, acc_v, amt_v, acc_w, amt_w, nx, ny, nz, x0);
   return static_cast<int>(cudaGetLastError());
 }

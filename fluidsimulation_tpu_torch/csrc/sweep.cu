@@ -141,7 +141,8 @@ __device__ __forceinline__ void move_chunk(float* buf, float* phi, float* cpos,
 template <int AXIS>
 __global__ void __launch_bounds__(kBlockThreads) sweep_tile_kernel(
     const float* phi_in, const float* cpos_in, float* phi_out, float* cpos_out,
-    int nx, int ny, int nz, int reverse, float r) {
+    const float* carry_in, float* carry_out, int nx, int ny, int nz, int reverse, float r,
+    int xo) {
   __shared__ float bufs[2][kBuffer];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -163,7 +164,7 @@ __global__ void __launch_bounds__(kBlockThreads) sweep_tile_kernel(
       tile.base = static_cast<long long>(o) * ny * nz + z0;
       tile.stride = nz;
       tile.len = ny;
-      fx = static_cast<float>(o);
+      fx = static_cast<float>(o + xo);
     }
     fz = static_cast<float>(z0 + lane);
   } else {
@@ -172,7 +173,7 @@ __global__ void __launch_bounds__(kBlockThreads) sweep_tile_kernel(
     tile.base = c0 * nz;
     tile.len = nz;
     const long long c = c0 + lane;
-    fx = static_cast<float>(c / ny);
+    fx = static_cast<float>(c / ny + xo);
     fy = static_cast<float>(c % ny);
   }
   const int chunks = (tile.len + kC - 1) / kC;
@@ -218,7 +219,14 @@ __global__ void __launch_bounds__(kBlockThreads) sweep_tile_kernel(
       float* py = ph + 2 * kField;
       float* pz = ph + 3 * kField;
       int k = 0;
-      if (t0 == 0) {  // the sweep's first plane: copied, never updated
+      if (t0 == 0 && carry_in != nullptr) {
+        // An x-slab's sweep continues a neighbour's: its first plane is
+        // held against the carried candidate like any other.
+        const long long j = 3 * (tile.base + lane);
+        cx = carry_in[j];
+        cy = carry_in[j + 1];
+        cz = carry_in[j + 2];
+      } else if (t0 == 0) {  // the sweep's first plane: copied, never updated
         cx = px[0];
         cy = py[0];
         cz = pz[0];
@@ -232,7 +240,7 @@ __global__ void __launch_bounds__(kBlockThreads) sweep_tile_kernel(
         const int t = t0 + k;
         const float s = static_cast<float>(reverse ? tile.len - 1 - t : t);
         if (AXIS == 0) {
-          fx = s;
+          fx = static_cast<float>((reverse ? tile.len - 1 - t : t) + xo);
         } else if (AXIS == 1) {
           fy = s;
         } else {
@@ -257,15 +265,25 @@ __global__ void __launch_bounds__(kBlockThreads) sweep_tile_kernel(
     }
     barrier_arrive(kEmpty + b, kBlockThreads);
   }
+  if (carry_out != nullptr && walks) {
+    // The last plane's resulting candidate, for the next slab's sweep.
+    const long long j = 3 * (tile.base + lane);
+    carry_out[j] = cx;
+    carry_out[j + 1] = cy;
+    carry_out[j + 2] = cz;
+  }
 }
 
 }  // namespace
 
 // Run the sweeps codes[0..ncodes) in order (code: 0 Xm, 1 Xp, 2 Ym, 3 Yp,
 // 4 Zm, 5 Zp; axis code / 2, reversed when odd). codes is a host array.
+// x0: the grid's first x plane is plane x0 of the domain, whose frame the
+// candidates are in (a rank's x-slab, parallel/halo_step.py); the distances
+// are to the centres x0 + x. 0 for a whole grid.
 extern "C" int fst_sweeps(const float* phi_in, const float* cpos_in, float* phi_out,
                           float* cpos_out, int nx, int ny, int nz, float r,
-                          const int* codes, int ncodes, void* stream) {
+                          const int* codes, int ncodes, int x0, void* stream) {
   if (ncodes < 1 || nx < 1 || ny < 1 || nz < 1) return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < ncodes; ++i) {
     if (codes[i] < 0 || codes[i] > 5) return static_cast<int>(cudaErrorInvalidValue);
@@ -284,14 +302,43 @@ extern "C" int fst_sweeps(const float* phi_in, const float* cpos_in, float* phi_
     const float* src_cpos = i == 0 ? cpos_in : cpos_out;
     const unsigned int grid = static_cast<unsigned int>(tiles[axis]);
     if (axis == 0) {
-      sweep_tile_kernel<0><<<grid, kBlockThreads, 0, s>>>(src_phi, src_cpos, phi_out, cpos_out, nx, ny, nz, reverse, r);
+      sweep_tile_kernel<0><<<grid, kBlockThreads, 0, s>>>(src_phi, src_cpos, phi_out, cpos_out, nullptr, nullptr, nx, ny, nz, reverse, r, x0);
     } else if (axis == 1) {
-      sweep_tile_kernel<1><<<grid, kBlockThreads, 0, s>>>(src_phi, src_cpos, phi_out, cpos_out, nx, ny, nz, reverse, r);
+      sweep_tile_kernel<1><<<grid, kBlockThreads, 0, s>>>(src_phi, src_cpos, phi_out, cpos_out, nullptr, nullptr, nx, ny, nz, reverse, r, x0);
     } else {
-      sweep_tile_kernel<2><<<grid, kBlockThreads, 0, s>>>(src_phi, src_cpos, phi_out, cpos_out, nx, ny, nz, reverse, r);
+      sweep_tile_kernel<2><<<grid, kBlockThreads, 0, s>>>(src_phi, src_cpos, phi_out, cpos_out, nullptr, nullptr, nx, ny, nz, reverse, r, x0);
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaSuccess);
+}
+
+// One x-sweep of an x-slab (parallel/halo_step.py's relay), continuing the
+// sweep of the slab before it (after it when reversed): plane 0 (plane
+// nx - 1 when reversed) is held against carry_in, the (ny, nz, 3)
+// candidate plane the neighbouring slab's sweep ended with, already moved
+// into this slab's frame. carry_in null: the first plane is copied, as in
+// fst_sweeps (the slab at the domain's edge). carry_out, if not null,
+// receives the (ny, nz, 3) candidates of the last plane walked, for the
+// next slab. x0 as in fst_sweeps. The same kernel as fst_sweeps' x-sweeps, with the carry
+// read and written by the walking lane: 24 B a line more, so the same
+// bound (the slab's phi and cpos read and written once). Carry pointers
+// rather than the received plane prepended to the slab: the kernel
+// measures distances to the centres at its plane indices, so a prepended
+// plane would move every centre by one, and it would cost a copy of the
+// slab a sweep.
+extern "C" int fst_sweep_x_carry(const float* phi_in, const float* cpos_in, float* phi_out,
+                                 float* cpos_out, const float* carry_in, float* carry_out,
+                                 int nx, int ny, int nz, int reverse, float r, int x0,
+                                 void* stream) {
+  if (nx < 1 || ny < 1 || nz < 1 || (reverse != 0 && reverse != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long tiles = static_cast<long long>(ny) * ((nz + kT - 1) / kT);
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  sweep_tile_kernel<0><<<static_cast<unsigned int>(tiles), kBlockThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      phi_in, cpos_in, phi_out, cpos_out, carry_in, carry_out, nx, ny, nz, reverse, r, x0);
+  return static_cast<int>(cudaGetLastError());
 }

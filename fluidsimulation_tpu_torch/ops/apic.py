@@ -48,32 +48,38 @@ def _quad_spline(d):
     return torch.where(ad < 0.5, inner, torch.where(ad < 1.5, outer, 0.0))
 
 
-def _axis_nodes(t, hi: int, m_ax):
+def _axis_nodes(t, hi: int, m_ax, x0: int = 0):
     """The nodes base + 0, 1, 2 along one axis of coordinates t (node
-    frame): (index, in range, spline weight, lever node - particle in m)."""
+    frame): (index, in range, spline weight, lever node - particle in m);
+    the index less x0, the grid's first node on the axis."""
     base = index_of(torch.floor(t - 0.5))
     out = []
     for off in range(3):
         idx = base + off
         d = t - idx.float()
+        idx = idx - x0
         out.append((idx, (idx >= 0) & (idx < hi), _quad_spline(d), -d / m_ax))
     return out
 
 
-def _component_nodes(cfg: SimConfig, pc, comp_axis: int):
+def _component_nodes(cfg: SimConfig, pc, comp_axis: int, m=None, x0: int = 0):
     """Yield (idx3, ok, w, dxm) for the 27 spline nodes of one component,
     in JAX's order.
 
-    pc: (N, 3) positions in cell units. idx3: 3 (N,) int64 node indices;
-    ok: (N,) in-range mask; w: (N,) spline weight; dxm: 3 (N,) lever arms
-    x_i - x_p in meters. Each axis's three nodes are formed once; a node's
-    weight is their product in JAX's order, (w_x * w_y) * w_z.
+    pc: (N, 3) positions in cell units of cfg's grid. idx3: 3 (N,) int64
+    node indices; ok: (N,) in-range mask; w: (N,) spline weight; dxm: 3
+    (N,) lever arms x_i - x_p in meters, a cell being 1 / m[axis] meters
+    (m: cfg's cell_scale unless given). x0: cfg's grid is the x-slab from
+    the domain's plane x0 on, pc in the domain's cell units. Each axis's
+    three nodes are formed once; a node's weight is their product in JAX's
+    order, (w_x * w_y) * w_z.
     """
     dims = (cfg.nx, cfg.ny, cfg.nz)
-    m = cell_scale(cfg, pc.device)
+    if m is None:
+        m = cell_scale(cfg, pc.device)
     axes = [
         _axis_nodes(pc[:, ax] + (0.5 if ax == comp_axis else 0.0),
-                    dims[ax] + (1 if ax == comp_axis else 0), m[ax])
+                    dims[ax] + (1 if ax == comp_axis else 0), m[ax], x0 if ax == 0 else 0)
         for ax in range(3)
     ]
     for ox, oy, oz in itertools.product(range(3), repeat=3):
@@ -94,15 +100,25 @@ def p2g_apic(cfg: SimConfig, pos, vel, C):
     values and their validity (weight above APIC_WEIGHT_THRESH); boundary
     faces are 0 and valid.
     """
-    pc = pos * cell_scale(cfg, pos.device)
+    m = cell_scale(cfg, pos.device)
+    return p2g_apic_cells(cfg, pos * m, vel, C, m)
+
+
+def p2g_apic_cells(cfg: SimConfig, pc, vel, C, m, x0: int = 0):
+    """p2g_apic on positions pc in the domain's cell units, m the domain's
+    (3,) cell_scale, onto cfg's grid, which is the x-slab from the
+    domain's plane x0 on: a rank's extended slab in
+    parallel/halo_apic.py. The weights and lever arms are the whole
+    grid's, bit for bit (the JAX package takes the weights in a shifted
+    frame, halo_apic.py:166-169)."""
     out = []
     for comp_axis, shape in _shapes(cfg):
         pv = vel[:, comp_axis]
         crow = C[:, comp_axis, :]
         _, sy, sz = shape
-        acc = torch.zeros(math.prod(shape), dtype=torch.float32, device=pos.device)
+        acc = torch.zeros(math.prod(shape), dtype=torch.float32, device=pc.device)
         amt = torch.zeros_like(acc)
-        for idx, ok, w, dxm in _component_nodes(cfg, pc, comp_axis):
+        for idx, ok, w, dxm in _component_nodes(cfg, pc, comp_axis, m, x0):
             val = pv + crow[:, 0] * dxm[0] + crow[:, 1] * dxm[1] + crow[:, 2] * dxm[2]
             # A node outside the grid is masked before its index is used.
             lin = torch.where(ok, (idx[0] * sy + idx[1]) * sz + idx[2], 0)

@@ -49,14 +49,25 @@ class SortedParticles:
 
 
 def build_csr(cfg: SimConfig, pos) -> CSR:
+    """The CSR index of positions in meters."""
+    return build_csr_cells(cfg, pos * cell_scale(cfg, pos.device))
+
+
+def build_csr_cells(cfg: SimConfig, pcs, x0: int = 0) -> CSR:
+    """The CSR index of positions in cell units. x0: cfg's grid is the
+    x-slab from the domain's plane x0 on, and pcs are in the domain's cell
+    units (a rank's extended slab in parallel/halo_step.py); each particle
+    must then lie in the slab."""
     nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
     ncell = nx * ny * nz
-    c = cell_of(pos * cell_scale(cfg, pos.device), far_cell(cfg))
+    c = cell_of(pcs, far_cell(cfg))
+    if x0:
+        c[:, 0] -= x0
     # A non-finite particle has far_cell on an axis, so its id is ncell or more.
     lin = ((c[:, 0] * ny + c[:, 1]) * nz + c[:, 2]).clamp_(max=ncell)
     cell, order = torch.sort(lin, stable=True)
     counts = torch.bincount(lin, minlength=ncell + 1)[:ncell]
-    start = torch.zeros(ncell + 1, dtype=torch.int32, device=pos.device)
+    start = torch.zeros(ncell + 1, dtype=torch.int32, device=pcs.device)
     start[1:] = torch.cumsum(counts, 0)
     return CSR(order=order, cell=cell, start=start)
 

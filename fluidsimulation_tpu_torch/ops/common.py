@@ -22,6 +22,15 @@ def shift(a, axis: int, s: int, fill):
     return out
 
 
+def shift_with_halo(a, lo, hi, s: int):
+    """result[x] = a[x + s] along axis 0 (s = +-1), an x-slab's neighbour
+    planes ``lo`` (before x = 0) and ``hi`` (after the last x) filling the
+    end: shift's form for a slab of the grid (parallel/)."""
+    if s > 0:
+        return torch.cat([a[1:], hi[None]], 0)
+    return torch.cat([lo[None], a[:-1]], 0)
+
+
 # Index of an infinite coordinate (index_of): outside every grid, and the
 # indices of its neighbouring nodes stay far from overflow.
 FAR_INDEX = float(2**30)

@@ -17,7 +17,7 @@ from ..core.config import SimConfig
 
 KERNEL = _build.Kernel(
     "fst_p2g",
-    [_build.P] * 9 + [_build.I] * 3,
+    [_build.P] * 9 + [_build.I] * 4,
 )
 
 
@@ -25,19 +25,19 @@ def face_shapes(cfg: SimConfig):
     return (cfg.u_shape(), cfg.v_shape(), cfg.w_shape())
 
 
-def _scatter_component(cfg: SimConfig, p, pv, comp_axis: int, shape):
+def _scatter_component(cfg: SimConfig, p, pv, comp_axis: int, shape, x0: int = 0):
     """Scatter one component to its staggered grid: each particle adds hat
     weights to 8 faces (Simulation3D.cpp:440-537). A face off the grid is
     masked, weight and value; so is every face of a particle whose position
     is not finite (its NaN index fails the range test), NaN velocity and
-    all."""
+    all. x0 as p2g_accumulate_plain's."""
     n = p.shape[0]
     dims = (cfg.nx, cfg.ny, cfg.nz)
     base, alpha = [], []
     for ax in range(3):
         c = p[:, ax] + (0.5 if ax == comp_axis else 0.0)
         b = torch.floor(c)
-        base.append(b.long())
+        base.append(b.long() - (x0 if ax == 0 else 0))
         alpha.append(c - b)
     flat_idx, flat_w, flat_v = [], [], []
     for ox in (0, 1):
@@ -66,15 +66,17 @@ def _scatter_component(cfg: SimConfig, p, pv, comp_axis: int, shape):
     return acc.reshape(shape), amt.reshape(shape)
 
 
-def p2g_accumulate_plain(cfg: SimConfig, pc, vel):
-    """pc: (N, 3) positions in cell units; vel: (N, 3). Any particle order."""
+def p2g_accumulate_plain(cfg: SimConfig, pc, vel, x0: int = 0):
+    """pc: (N, 3) positions in cell units; vel: (N, 3). Any particle order.
+    x0: cfg's grid is the x-slab from the domain's plane x0 on, and pc is in
+    the domain's cell units (parallel/halo_step.py); 0 for a whole grid."""
     return [
-        _scatter_component(cfg, pc, vel[:, a].contiguous(), a, shape)
+        _scatter_component(cfg, pc, vel[:, a].contiguous(), a, shape, x0)
         for a, shape in enumerate(face_shapes(cfg))
     ]
 
 
-def p2g_accumulate(cfg: SimConfig, pcs, vels, start):
+def p2g_accumulate(cfg: SimConfig, pcs, vels, start, x0: int = 0):
     """pcs, vels: (N, 3) positions in cell units and velocities in CSR
     order; start: (nx*ny*nz + 1,) int32 CSR offsets (ops/binning.py); slots
     from start[-1] on (non-finite positions) are not read.
@@ -83,9 +85,10 @@ def p2g_accumulate(cfg: SimConfig, pcs, vels, start):
     that build_csr binned: the kernel takes each particle's x and y hats
     from the cell its CSR run says, which holds only if floor(p + 0.5) of
     these floats is that cell. Positions scaled another way give wrong
-    weights, with no error."""
+    weights, with no error. x0 as p2g_accumulate_plain's: the runs are then
+    the cells floor(p + 0.5) - x0 along x."""
     if pcs.device.type == "cpu":
-        return p2g_accumulate_plain(cfg, pcs, vels)
+        return p2g_accumulate_plain(cfg, pcs, vels, x0)
     nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
     n = pcs.shape[0]
     dev = _build.same_device(pcs, vels, start)
@@ -100,5 +103,5 @@ def p2g_accumulate(cfg: SimConfig, pcs, vels, start):
         amt = torch.empty(shape, dtype=torch.float32, device=dev)
         out.append((acc, amt))
         args += [acc.data_ptr(), amt.data_ptr()]
-    KERNEL.launch(dev, *args, nx, ny, nz)
+    KERNEL.launch(dev, *args, nx, ny, nz, x0)
     return out

@@ -11,6 +11,11 @@ takes the plain version; a CUDA tensor launches the kernel, one C call a
 solve: a list-building launch, then one cooperative launch that runs every
 half-update with a grid barrier between them.
 
+``sor_half`` is one colour's half-update on an x-slab of the grid, with
+the slab's neighbour planes given: the multi-rank solve of
+parallel/halo.py launches it 2 x iterations times, exchanging p's boundary
+planes between launches (csrc/sor.cu::fst_sor_half).
+
 The grid's shape comes from the tensors, omega and the iteration count from
 the config, so the 2D projection (solver/step2d.py) runs the same solve on
 (nx, ny, 1) views with SimConfig2D's omega and 120 iterations: its z
@@ -24,11 +29,18 @@ import torch
 
 from .. import _build
 from ..core.config import SimConfig, SimConfig2D
-from .common import shift
+from .common import shift, shift_with_halo
 
 KERNEL = _build.Kernel(
     "fst_sor",
     [_build.P] * 7 + [_build.I] * 4 + [_build.F, _build.F],
+)
+
+# One colour's half-update on an x-slab, for the halo solve of
+# parallel/halo.py (ranks exchange p's boundary planes between launches).
+HALF_KERNEL = _build.Kernel(
+    "fst_sor_half",
+    [_build.P] * 8 + [_build.I] * 5 + [_build.F, _build.F],
 )
 
 
@@ -102,3 +114,50 @@ def sor_launch(cfg: SimConfig | SimConfig2D, phi, diag, b):
         *shape, cfg.sor_iterations, float(omega), float(one_minus_omega),
     )
     return p, counters
+
+
+def sor_half_plain(cfg: SimConfig | SimConfig2D, p, p_lo, p_hi, phi, phi_lo, phi_hi, diag, b,
+                   x0: int, color: int):
+    sx, ny, nz = phi.shape
+    omega, one_minus_omega = relaxation(cfg)
+    dev = phi.device
+    parity = (
+        (x0 + torch.arange(sx, device=dev))[:, None, None]
+        + torch.arange(ny, device=dev)[None, :, None]
+        + torch.arange(nz, device=dev)[None, None, :]
+    ) % 2
+    fluid = phi < 0.0
+    nms = torch.zeros_like(p)
+    for s in (-1, 1):
+        nb = shift_with_halo(fluid, phi_lo < 0.0, phi_hi < 0.0, s)
+        nms = nms - torch.where(nb, shift_with_halo(p, p_lo, p_hi, s), 0.0)
+    for axis in (1, 2):
+        for s in (-1, 1):
+            nms = nms - torch.where(shift(fluid, axis, s, False), shift(p, axis, s, 0.0), 0.0)
+    upd = one_minus_omega * p + omega * (b - nms) / diag
+    p.copy_(torch.where(fluid & (parity == color), upd, p))
+    return p
+
+
+def sor_half(cfg: SimConfig | SimConfig2D, p, p_lo, p_hi, phi, phi_lo, phi_hi, diag, b,
+             x0: int, color: int):
+    """One colour's half-update, in place on the x-slab p, of the solve of
+    sor_pressure: the slab holds global x planes x0 .. x0 + sx - 1 of the
+    grid; p_lo, p_hi, phi_lo and phi_hi are the (ny, nz) planes of p and
+    phi just before and after it (phi 0 past the domain's edge: not
+    fluid). phi, diag, b and p: (sx, ny, nz) float32. omega is the whole
+    grid's, from cfg. Returns p."""
+    if phi.device.type == "cpu":
+        return sor_half_plain(cfg, p, p_lo, p_hi, phi, phi_lo, phi_hi, diag, b, x0, color)
+    if phi.dim() != 3 or color not in (0, 1) or x0 < 0:
+        raise ValueError(f"sor_half: phi {tuple(phi.shape)}, x0 {x0}, color {color}")
+    shape = tuple(phi.shape)
+    plane = shape[1:]
+    dev = _build.same_device(p, p_lo, p_hi, phi, phi_lo, phi_hi, diag, b)
+    ptrs = [_build.check(t, name, s) for t, name, s in (
+        (p, "p", shape), (p_lo, "p_lo", plane), (p_hi, "p_hi", plane), (phi, "phi", shape),
+        (phi_lo, "phi_lo", plane), (phi_hi, "phi_hi", plane), (diag, "diag", shape),
+        (b, "b", shape))]
+    omega, one_minus_omega = relaxation(cfg)
+    HALF_KERNEL.launch(dev, *ptrs, *shape, x0, color, float(omega), float(one_minus_omega))
+    return p

@@ -36,6 +36,8 @@ def seed_own_cell(cfg: SimConfig, csr: CSR, pcs):
     nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
     ncell = nx * ny * nz
     dev = pcs.device
+    if pcs.shape[0] == 0:  # a rank's slab may hold none (parallel/halo_step.py)
+        return torch.full((nx, ny, nz, 3), FAR, dtype=torch.float32, device=dev)
     cf = cell_of(pcs, far_cell(cfg)).float()
     d = dist(pcs[:, 0], pcs[:, 1], pcs[:, 2], cf[:, 0], cf[:, 1], cf[:, 2]) - cfg.particle_radius
     best = torch.full((ncell + 1,), float("inf"), dtype=torch.float32, device=dev)

@@ -45,8 +45,9 @@ def transfer_to_grid(cfg: SimConfig, pos, vel):
     return _normalise(cfg, p2g_accumulate_plain(cfg, pos * cell_scale(cfg, pos.device), vel))
 
 
-def p2g_from_csr(cfg: SimConfig, csr: CSR, pcs, vels):
+def p2g_from_csr(cfg: SimConfig, csr: CSR, pcs, vels, x0: int = 0):
     """P2G by gather over the CSR index (ops/binning.py); pcs and vels are
-    the particles in its order (ops/binning.py::sort_particles). Returns
-    (u, v, w, u_valid, v_valid, w_valid)."""
-    return _normalise(cfg, p2g_accumulate(cfg, pcs, vels, csr.start))
+    the particles in its order (ops/binning.py::sort_particles). x0: the
+    grid is the x-slab from the domain's plane x0 on (cuda_p2g.py).
+    Returns (u, v, w, u_valid, v_valid, w_valid)."""
+    return _normalise(cfg, p2g_accumulate(cfg, pcs, vels, csr.start, x0=x0))

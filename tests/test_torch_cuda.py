@@ -40,7 +40,7 @@ from fluidsimulation_tpu_torch.core import cuda_pack
 from fluidsimulation_tpu_torch.core.interp import interp_mac3_vec
 from fluidsimulation_tpu_torch.core.seeding import noise_grids
 from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep
-from fluidsimulation_tpu_torch.ops.binning import build_csr, sort_particles
+from fluidsimulation_tpu_torch.ops.binning import build_csr, build_csr_cells, sort_particles
 from fluidsimulation_tpu_torch.ops.flip import flip_update_carry
 from fluidsimulation_tpu_torch.ops.levelset import seed_own_cell
 from fluidsimulation_tpu_torch.ops.project import compute_diag, compute_rhs
@@ -646,3 +646,178 @@ def test_2d_step_on_card_matches_cpu(dev, apic):
         atol = 2 * cfg.nx * 1e-4 if name == "C" else 1e-4
         torch.testing.assert_close(getattr(card, name).cpu(), getattr(cpu, name), rtol=0,
                                    atol=atol, msg=name)
+
+
+# -- the slab entries of the multi-rank family (parallel/) -------------------
+
+def _slabs(shape):
+    """x-slab count: 4 where it divides nx, else one plane a slab."""
+    return 4 if shape[0] % 4 == 0 else shape[0]
+
+
+def _sweep_inputs(shape, seed):
+    cfg = _shape_cfg(shape)
+    rng = np.random.default_rng(seed)
+    cpos = rng.uniform(-2.0, max(shape) + 2.0, size=(*shape, 3)).astype(np.float32)
+    cpos[rng.random(shape) > 0.3] = 1.0e9
+    cpos = torch.from_numpy(cpos)
+    axes = [torch.arange(n, dtype=torch.float32) for n in shape]
+    centers = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+    phi = cuda_seed.dist(*cpos.unbind(-1), *centers.unbind(-1)) - cfg.particle_radius
+    return cfg, phi, cpos
+
+
+@pytest.mark.parametrize("carry", [False, True], ids=["edge", "carried"])
+@pytest.mark.parametrize("reverse", [False, True], ids=["Xm", "Xp"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_sweep_x_carry_kernel_bit_exact(dev, shape, reverse, carry):
+    """fst_sweep_x_carry on a slab at x origin 5, with and without an
+    incoming plane (random candidates, FAR in part): phi, cpos and the
+    outgoing plane bit for bit the plain version, one launch."""
+    cfg, phi, cpos = _sweep_inputs(shape, sum(shape) + 7)
+    rng = np.random.default_rng(3)
+    plane = None
+    if carry:
+        plane = rng.uniform(-2.0, max(shape) + 2.0, size=(*shape[1:], 3)).astype(np.float32)
+        plane[rng.random(shape[1:]) > 0.5] = 1.0e9
+        plane = torch.from_numpy(plane).to(dev)
+    phi, cpos = phi.to(dev), cpos.to(dev)
+    before = cuda_sweep.CARRY_KERNEL.launches
+    got = cuda_sweep.sweep_x_carry(cfg, phi, cpos, reverse, plane, 5)
+    torch.cuda.synchronize()
+    assert cuda_sweep.CARRY_KERNEL.launches - before == 1
+    want = cuda_sweep.sweep_x_carry_plain(cfg, phi, cpos, reverse, plane, 5)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_sweep_x_relay_equals_fst_sweeps(dev, shape):
+    """The x-sweeps of SWEEP_ORDER relayed over x-slabs (each slab's sweep,
+    at its x origin, continuing its neighbour's carry plane) give the whole
+    grid's fst_sweeps bit for bit; and the y/z sweeps of each slab at its
+    origin are the whole grid's."""
+    cfg, phi, cpos = _sweep_inputs(shape, sum(shape) + 11)
+    phi, cpos = phi.to(dev), cpos.to(dev)
+    d = _slabs(shape)
+    sx = shape[0] // d
+    xs = [c for c in cuda_sweep.SWEEP_ORDER if cuda_sweep.CODE[c][0] == 0]
+    want = cuda_sweep.sweeps(cfg, phi, cpos, xs)
+    slab_phi = [phi[k * sx:(k + 1) * sx].contiguous() for k in range(d)]
+    slab_cpos = [cpos[k * sx:(k + 1) * sx].contiguous() for k in range(d)]
+    for code in xs:
+        reverse = cuda_sweep.CODE[code][1]
+        carry = None
+        for k in (range(d - 1, -1, -1) if reverse else range(d)):
+            slab_phi[k], slab_cpos[k], carry = cuda_sweep.sweep_x_carry(
+                cfg, slab_phi[k], slab_cpos[k], reverse, carry, k * sx)
+    assert torch.equal(torch.cat(slab_phi), want[0])
+    assert torch.equal(torch.cat(slab_cpos), want[1])
+    yz = [c for c in cuda_sweep.SWEEP_ORDER if cuda_sweep.CODE[c][0] != 0]
+    want = cuda_sweep.sweeps(cfg, phi, cpos, yz)
+    local = ft.SimConfig(nx=sx, ny=shape[1], nz=shape[2], cells_per_meter=float(shape[0]))
+    got = [cuda_sweep.sweeps(local, phi[k * sx:(k + 1) * sx].contiguous(),
+                             cpos[k * sx:(k + 1) * sx].contiguous(), yz, k * sx)
+           for k in range(d)]
+    assert torch.equal(torch.cat([g[0] for g in got]), want[0])
+    assert torch.equal(torch.cat([g[1] for g in got]), want[1])
+
+
+@pytest.mark.parametrize("cfg", [CFG, CFG2], ids=["ppc1", "ppc2"])
+def test_p2g_kernel_on_slabs_is_the_whole_grid(dev, cfg):
+    """P2G on x-slabs grown by a cell each side (the multi-rank step's
+    extended slabs, positions in the domain's frame, the kernel given the
+    slab's origin): each slab's own faces are the whole grid's bit for bit
+    (the same particles reach them in the same order)."""
+    pos, vel = _particles(dev, cfg)
+    m = torch.tensor([cfg.nx, cfg.ny, cfg.nz], dtype=torch.float32, device=dev)
+    csr = build_csr(cfg, pos)
+    walk = sort_particles(cfg, csr, pos, vel)
+    whole = cuda_p2g.p2g_accumulate(cfg, walk.pcs, walk.vels, csr.start)
+    d, sx = 4, cfg.nx // 4
+    pc = pos * m
+    cell = torch.floor(pc[:, 0] + 0.5)
+    for k in range(d):
+        lo, hi = min(1, k * sx), min(1, cfg.nx - (k + 1) * sx)
+        x0 = k * sx - lo
+        ext = ft.SimConfig(nx=lo + sx + hi, ny=cfg.ny, nz=cfg.nz, cells_per_meter=float(cfg.nx))
+        sel = torch.nonzero((cell >= x0) & (cell < x0 + ext.nx)).squeeze(1)
+        scsr = build_csr_cells(ext, pc[sel], x0)
+        before = cuda_p2g.KERNEL.launches
+        got = cuda_p2g.p2g_accumulate(ext, pc[sel][scsr.order], vel[sel][scsr.order],
+                                      scsr.start, x0)
+        torch.cuda.synchronize()
+        assert cuda_p2g.KERNEL.launches - before == 1
+        for a, ((acc, amt), (wacc, wamt)) in enumerate(zip(got, whole)):
+            own = slice(lo + (a == 0), lo + sx + (a == 0))  # u: faces x0+1 .. x0+sx
+            at = slice(k * sx + (a == 0), (k + 1) * sx + (a == 0))
+            assert torch.equal(acc[own], wacc[at]) and torch.equal(amt[own], wamt[at])
+
+
+def _sor_slab_inputs(shape, dev):
+    cfg = _shape_cfg(shape)
+    rng = np.random.default_rng(sum(shape) + 1)
+    x = np.arange(shape[0], dtype=np.float32)[:, None, None]
+    phi = (x - shape[0] / 2 + rng.uniform(-2.0, 2.0, size=shape)).astype(np.float32)
+    phi = torch.from_numpy(phi).to(dev)
+    b = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    return cfg, phi, compute_diag(cfg, phi), b
+
+
+@pytest.mark.parametrize("color", [0, 1])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_sor_half_kernel_bit_exact(dev, shape, color):
+    """fst_sor_half on the second x-slab of a grid, random p and halo planes
+    (phi's halos in part fluid): one launch, in place, bit for bit the
+    plain version."""
+    cfg, phi, diag, b = _sor_slab_inputs(shape, dev)
+    d = _slabs(shape)
+    sx = shape[0] // d
+    k = min(1, d - 1)
+    sl = slice(k * sx, (k + 1) * sx)
+    rng = np.random.default_rng(color)
+    p = torch.from_numpy(rng.standard_normal((sx, *shape[1:])).astype(np.float32)).to(dev)
+    planes = [torch.from_numpy(rng.standard_normal(shape[1:]).astype(np.float32)).to(dev)
+              for _ in range(4)]
+    args = (phi[sl].contiguous(), planes[2], planes[3], diag[sl].contiguous(),
+            b[sl].contiguous(), k * sx, color)
+    want = cuda_sor.sor_half_plain(cfg, p.clone(), planes[0], planes[1], *args)
+    got = p.clone()
+    before = cuda_sor.HALF_KERNEL.launches
+    out = cuda_sor.sor_half(cfg, got, planes[0], planes[1], *args)
+    torch.cuda.synchronize()
+    assert cuda_sor.HALF_KERNEL.launches - before == 1
+    assert out is got and not torch.equal(got, p)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_sor_halves_with_exchange_match_fst_sor(dev, shape):
+    """The solve as the ranks run it: x-slabs, 2 x 100 launches of
+    fst_sor_half with the boundary planes of p swapped between slabs before
+    each, against fst_sor on the whole grid: within 1e-5 (it is bit for bit
+    the same arithmetic, so equal)."""
+    cfg, phi, diag, b = _sor_slab_inputs(shape, dev)
+    d = _slabs(shape)
+    sx = shape[0] // d
+    want = cuda_sor.sor_pressure(cfg, phi, diag, b)
+    cut = [slice(k * sx, (k + 1) * sx) for k in range(d)]
+    zero = torch.zeros(shape[1:], device=dev)
+    phis = [phi[c].contiguous() for c in cut]
+    lo = [zero] + [phis[k - 1][-1] for k in range(1, d)]
+    hi = [phis[k + 1][0] for k in range(d - 1)] + [zero]
+    ps = [torch.zeros_like(t) for t in phis]
+    before = cuda_sor.HALF_KERNEL.launches
+    for _ in range(cfg.sor_iterations):
+        for color in (0, 1):
+            p_lo = [zero] + [ps[k - 1][-1].clone() for k in range(1, d)]
+            p_hi = [ps[k + 1][0].clone() for k in range(d - 1)] + [zero]
+            for k in range(d):
+                cuda_sor.sor_half(cfg, ps[k], p_lo[k], p_hi[k], phis[k], lo[k], hi[k],
+                                  diag[cut[k]].contiguous(), b[cut[k]].contiguous(), k * sx,
+                                  color)
+    torch.cuda.synchronize()
+    assert cuda_sor.HALF_KERNEL.launches - before == 2 * cfg.sor_iterations * d
+    got = torch.cat(ps)
+    assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(got, want)
