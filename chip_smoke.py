@@ -57,7 +57,9 @@ Phases, each printing before the next:
      NaN rule: a 32^3 state with one NaN position, two guarded steps on the
      card, each launching every kernel once (no raise, unhealthy, only that
      particle non-finite, grids finite)
-  5  the demo at its defaults; launches per step; checkpoint reload
+  5  the demo at its defaults; launches per step; checkpoint reload; one
+     more step under set_sync_debug_mode("warn"): torch's synchronizing
+     calls equal the step's sync counter (utils/trace.py)
   6  10 steps of 128^3 / ppc 2; median step time, peak device memory
   A  APIC: a 32^3 state stepped 3 times on the card vs the same steps on
      the CPU (1e-4 abs, C 2 m x 1e-4: apic_bound); 128^3 ppc 1 (1,000,188
@@ -65,9 +67,9 @@ Phases, each printing before the next:
      device memory, then the pass, the sweeps and the SOR vs their plain
      versions on the last step's inputs; the demo at its defaults with
      --transfer apic (64^3, ppc 2, 60 steps at rate 0.5, --save-state),
-     median step, checkpoint reload bit for bit; every step launching the
-     pass, the sweeps and the SOR once and no other kernel; all fields
-     finite
+     median step, checkpoint reload bit for bit, and its sync count as
+     phase 5's; every step launching the pass, the sweeps and the SOR once
+     and no other kernel; all fields finite
   7  combined-key interpolation, on the final state of phase 3 (128^3,
      after phase 3's kernel checks; its times reported) and of phase 5
      (64^3 ppc 2; times printed only): the pack's launch count, the pack vs
@@ -839,12 +841,14 @@ def run_demo(table, results, card):
     """Phase 5: app.demo.main at its defaults, every step through the
     launch check; then the kernels on the last step's inputs and phase 7
     on the final state."""
+    import fluidsimulation_tpu_torch as ft
     from fluidsimulation_tpu_torch.utils.checkpoint import load_state
 
     check = LaunchCheck("phase 5 (demo 64^3 ppc 2)")
     step_ms, state, cfg, dt, captured = drive_demo("phase 5", check, "flip", load_state, FIELDS,
                                                    card)
     launches = check.totals()
+    check_host_syncs("phase 5 host syncs", ft.step, state, dt, cfg)
     check_kernels(table, ("seed", "sweep", "p2g2", "sor", "g2p"), captured,
                   f"{cfg.nx}^3 ppc 2", results, timed=("seed", "sweep", "p2g2", "sor", "g2p"),
                   reported=("p2g2",))
@@ -967,9 +971,10 @@ def run_apic(table, results, card) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     check = LaunchCheck("phase A (APIC demo 64^3 ppc 2)", apic_launches())
-    demo_ms, state, _, _, _ = drive_demo("phase A demo", check, "apic", load_apic_state,
-                                         APIC_FIELDS, card)
+    demo_ms, state, demo_cfg, demo_dt, _ = drive_demo("phase A demo", check, "apic",
+                                                       load_apic_state, APIC_FIELDS, card)
     demo_launches = check.totals()
+    check_host_syncs("phase A demo host syncs", ft.step_apic, state, demo_dt, demo_cfg)
     demo_peak = torch.cuda.max_memory_allocated()
     say(f"phase A demo: peak device memory {demo_peak} B ({demo_peak / 2**30:.3f} GiB)")
     label = "demo 64^3 ppc 2"
@@ -1232,6 +1237,31 @@ def count_syncs(fn):
         raise AssertionError(f"render: torch reported {syncs} synchronizing calls, fewer than the "
                              f"renderer's {reads[0]} host reads")
     return out, syncs, reads[0]
+
+
+def check_host_syncs(label: str, step, state, dt, cfg) -> None:
+    """One step of ``step`` under torch.cuda.set_sync_debug_mode("warn")
+    with the program's recording open: the synchronizing calls torch
+    reports must be the step's ``sync`` counter (utils/trace.py), the
+    count step.host_syncs reads."""
+    from fluidsimulation_tpu_torch.utils import trace
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with trace.recording() as rec:
+                step(state, dt, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    warned = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+    counted = rec.counts.get(0, {}).get(trace.SYNC, 0)
+    if rec.steps != 1 or warned != counted:
+        raise AssertionError(f"{label}: torch reported {warned} synchronizing calls in a step, "
+                             f"the step's sync counter {counted} ({rec.steps} steps recorded)")
+    say(f"{label}: one step, {warned} synchronizing calls, the step's sync counter {counted}")
 
 
 def check_frame(label: str, img, shape) -> float:

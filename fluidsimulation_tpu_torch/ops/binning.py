@@ -28,6 +28,7 @@ import dataclasses
 import torch
 
 from ..core.config import SimConfig
+from ..utils.trace import sync
 from .common import cell_of, cell_scale, far_cell
 
 
@@ -66,7 +67,8 @@ def build_csr_cells(cfg: SimConfig, pcs, x0: int = 0) -> CSR:
     # A non-finite particle has far_cell on an axis, so its id is ncell or more.
     lin = ((c[:, 0] * ny + c[:, 1]) * nz + c[:, 2]).clamp_(max=ncell)
     cell, order = torch.sort(lin, stable=True)
-    counts = torch.bincount(lin, minlength=ncell + 1)[:ncell]
+    with sync(2):  # on the card, bincount reads lin's minimum and maximum back
+        counts = torch.bincount(lin, minlength=ncell + 1)[:ncell]
     start = torch.zeros(ncell + 1, dtype=torch.int32, device=pcs.device)
     start[1:] = torch.cumsum(counts, 0)
     return CSR(order=order, cell=cell, start=start)

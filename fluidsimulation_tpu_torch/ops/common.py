@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.trace import sync
+
 
 def shift(a, axis: int, s: int, fill):
     """result[i] = a[i + s] along ``axis``; out-of-range entries are ``fill``.
@@ -66,5 +68,8 @@ def cell_of(pos_cells, far: float):
 
 
 def cell_scale(cfg, device) -> torch.Tensor:
-    """The (3,) float32 tensor [nx, ny, nz]: meters times it are cell units."""
-    return torch.tensor([cfg.nx, cfg.ny, cfg.nz], dtype=torch.float32, device=device)
+    """The (3,) float32 tensor [nx, ny, nz]: meters times it are cell units.
+    On the card a copy from pageable host memory, after which torch waits
+    for the stream: a sync."""
+    with sync():
+        return torch.tensor([cfg.nx, cfg.ny, cfg.nz], dtype=torch.float32, device=device)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..core.config import SimConfig
+from ..utils.trace import span
 from .binning import CSR
 from .common import cell_of, far_cell
 from .cuda_seed import FAR, dist, neighborhood_pass
@@ -56,7 +57,13 @@ def seed_own_cell(cfg: SimConfig, csr: CSR, pcs):
 
 def compute_level_set(cfg: SimConfig, csr: CSR, pcs):
     """Seed, 27-neighbourhood pass and 24 sweeps; pcs as seed_own_cell
-    takes them. Returns (phi, cpos)."""
-    phi, cpos = neighborhood_pass(cfg, seed_own_cell(cfg, csr, pcs))
-    return sweep_closest(cfg, phi, cpos)
+    takes them. Returns (phi, cpos). A ``level_set`` span over the
+    ``seed``, ``pass`` and ``sweeps`` spans."""
+    with span("level_set"):
+        with span("seed"):
+            cpos0 = seed_own_cell(cfg, csr, pcs)
+        with span("pass"):
+            phi, cpos = neighborhood_pass(cfg, cpos0)
+        with span("sweeps"):
+            return sweep_closest(cfg, phi, cpos)
 

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..core.config import SimConfig
+from ..utils.trace import span
 from .common import shift, shift_with_halo
 from .cuda_sor import sor_pressure
 
@@ -100,9 +101,15 @@ def apply_pressure(cfg: SimConfig, u, v, w, p, phi, dt):
 
 def project(cfg: SimConfig, u, v, w, phi, dt):
     """Full projection (GPFluidSim::ProjectGPU, Simulation.cpp:860-943).
-    Returns (u, v, w, p)."""
-    b = compute_rhs(cfg, u, v, w, dt)
-    diag = compute_diag(cfg, phi)
-    p = sor_pressure(cfg, phi, diag, b)
-    u, v, w = apply_pressure(cfg, u, v, w, p, phi, dt)
-    return u, v, w, p
+    Returns (u, v, w, p). A ``project`` span over the ``rhs``, ``diag``,
+    ``sor`` and ``apply`` spans."""
+    with span("project"):
+        with span("rhs"):
+            b = compute_rhs(cfg, u, v, w, dt)
+        with span("diag"):
+            diag = compute_diag(cfg, phi)
+        with span("sor"):
+            p = sor_pressure(cfg, phi, diag, b)
+        with span("apply"):
+            u, v, w = apply_pressure(cfg, u, v, w, p, phi, dt)
+        return u, v, w, p

@@ -33,6 +33,7 @@ from ..ops.extrapolate import extrapolate_one_ring
 from ..ops.forces import add_gravity
 from ..ops.levelset import compute_level_set
 from ..ops.project import project
+from ..utils.trace import span
 
 __all__ = ["ApicState", "init_apic_state", "step_apic", "simulate_apic"]
 
@@ -48,23 +49,32 @@ def init_apic_state(cfg: SimConfig, device) -> ApicState:
 
 def step_apic(state: ApicState, dt, cfg: SimConfig) -> ApicState:
     """Advance the APIC state by one (already clamped) dt."""
-    pos = advect_rk3_pic(cfg, state.u, state.v, state.w, state.pos, state.vel, dt)
-    csr = build_csr(cfg, pos)
-    walk = sort_particles(cfg, csr, pos, state.vel)
-    phi, _ = compute_level_set(cfg, csr, walk.pcs)
-    # P2G in the particles' own order: on the CPU its sums are then JAX's
-    # bit for bit (ops/apic.py).
-    u, v, w, uv, vv, wv = p2g_apic(cfg, pos, state.vel, state.C)
-    # One ring, as the reference: every face G2P reads with a nonzero
-    # weight was weighted by P2G (ops/apic.py::extrapolate_rings).
-    u = extrapolate_one_ring(u, uv)
-    v = extrapolate_one_ring(v, vv)
-    w = extrapolate_one_ring(w, wv)
-    v = add_gravity(cfg, v, dt)
-    u, v, w, _ = project(cfg, u, v, w, phi, dt)
-    vel, C = g2p_apic(cfg, pos, u, v, w)
-    phi = blur_phi(phi)
-    return ApicState(pos=pos, vel=vel, C=C, u=u, v=v, w=w, phi=phi)
+    with span("step"):
+        with span("advect"):
+            pos = advect_rk3_pic(cfg, state.u, state.v, state.w, state.pos, state.vel, dt)
+        with span("csr"):
+            csr = build_csr(cfg, pos)
+        with span("sort"):
+            walk = sort_particles(cfg, csr, pos, state.vel)
+        phi, _ = compute_level_set(cfg, csr, walk.pcs)
+        # P2G in the particles' own order: on the CPU its sums are then JAX's
+        # bit for bit (ops/apic.py).
+        with span("p2g"):
+            u, v, w, uv, vv, wv = p2g_apic(cfg, pos, state.vel, state.C)
+        # One ring, as the reference: every face G2P reads with a nonzero
+        # weight was weighted by P2G (ops/apic.py::extrapolate_rings).
+        with span("extrapolate"):
+            u = extrapolate_one_ring(u, uv)
+            v = extrapolate_one_ring(v, vv)
+            w = extrapolate_one_ring(w, wv)
+        with span("gravity"):
+            v = add_gravity(cfg, v, dt)
+        u, v, w, _ = project(cfg, u, v, w, phi, dt)
+        with span("particle_update"):
+            vel, C = g2p_apic(cfg, pos, u, v, w)
+        with span("blur"):
+            phi = blur_phi(phi)
+        return ApicState(pos=pos, vel=vel, C=C, u=u, v=v, w=w, phi=phi)
 
 
 def simulate_apic(state: ApicState, dt, cfg: SimConfig, n_steps: int) -> ApicState:

@@ -23,6 +23,7 @@ from ..core.config import SimConfig2D
 from ..core.state import ApicState2D, init_apic_state2d
 from ..ops.apic import _axis_nodes
 from ..ops.forces import add_gravity
+from ..utils.trace import span
 from .step2d import (
     _finish_faces,
     _scale,
@@ -104,14 +105,21 @@ def g2p_apic2d(cfg: SimConfig2D, pos, u, v):
 
 
 def step_apic2d(state: ApicState2D, dt, cfg: SimConfig2D) -> ApicState2D:
-    """Advance the 2D APIC state by one (already clamped) dt."""
-    pos = advect_rk3(cfg, state.u, state.v, state.pos, dt)
-    phi, _ = compute_level_set(cfg, pos)
-    u, v, uv, vv = p2g_apic2d(cfg, pos, state.vel, state.C)
-    iters = cfg.nx + cfg.ny + 2
-    u = extrapolate_full(u, uv, iters)
-    v = extrapolate_full(v, vv, iters)
-    v = add_gravity(cfg, v, dt)
-    u, v, _ = project(cfg, u, v, phi, dt)
-    vel, C = g2p_apic2d(cfg, pos, u, v)
-    return ApicState2D(pos=pos, vel=vel, C=C, u=u, v=v, phi=phi)
+    """Advance the 2D APIC state by one (already clamped) dt: a ``step``
+    span over the stages' spans (utils/trace.py)."""
+    with span("step"):
+        with span("advect"):
+            pos = advect_rk3(cfg, state.u, state.v, state.pos, dt)
+        phi, _ = compute_level_set(cfg, pos)
+        with span("p2g"):
+            u, v, uv, vv = p2g_apic2d(cfg, pos, state.vel, state.C)
+        iters = cfg.nx + cfg.ny + 2
+        with span("extrapolate"):
+            u = extrapolate_full(u, uv, iters)
+            v = extrapolate_full(v, vv, iters)
+        with span("gravity"):
+            v = add_gravity(cfg, v, dt)
+        u, v, _ = project(cfg, u, v, phi, dt)
+        with span("particle_update"):
+            vel, C = g2p_apic2d(cfg, pos, u, v)
+        return ApicState2D(pos=pos, vel=vel, C=C, u=u, v=v, phi=phi)

@@ -30,6 +30,7 @@ from ..core.state import SimState2D, init_state2d
 from ..ops.common import index_of, shift
 from ..ops.cuda_sor import sor_pressure
 from ..ops.forces import add_gravity
+from ..utils.trace import span, sync
 from .step3d import pic_flip_alpha
 
 __all__ = [
@@ -46,8 +47,10 @@ SWEEPS = ((0, False), (1, False), (0, True), (1, False), (0, True), (1, True), (
 
 
 def _scale(cfg: SimConfig2D, device) -> torch.Tensor:
-    """The (2,) float32 tensor [nx, ny]: meters times it are cell units."""
-    return torch.tensor([cfg.nx, cfg.ny], dtype=torch.float32, device=device)
+    """The (2,) float32 tensor [nx, ny]: meters times it are cell units
+    (on the card a sync, as ops/common.py::cell_scale)."""
+    with sync():
+        return torch.tensor([cfg.nx, cfg.ny], dtype=torch.float32, device=device)
 
 
 def _dist(a, b):
@@ -145,12 +148,16 @@ def _sweep_axis2(phi, cpos, r: float, axis: int, reverse: bool, center):
 
 
 def compute_level_set(cfg: SimConfig2D, pos):
-    """Seed, then the 8 sweeps of SWEEPS. Returns (phi, cpos)."""
-    phi, cpos = seed_closest(cfg, pos)
-    center = _centers(cfg.nx, cfg.ny, pos.device)
-    for axis, reverse in SWEEPS:
-        phi, cpos = _sweep_axis2(phi, cpos, cfg.particle_radius, axis, reverse, center)
-    return phi, cpos
+    """Seed, then the 8 sweeps of SWEEPS. Returns (phi, cpos). A
+    ``level_set`` span over the ``seed`` and ``sweeps`` spans."""
+    with span("level_set"):
+        with span("seed"):
+            phi, cpos = seed_closest(cfg, pos)
+        with span("sweeps"):
+            center = _centers(cfg.nx, cfg.ny, pos.device)
+            for axis, reverse in SWEEPS:
+                phi, cpos = _sweep_axis2(phi, cpos, cfg.particle_radius, axis, reverse, center)
+        return phi, cpos
 
 
 def _finish_faces(g, valid, comp_axis: int):
@@ -278,12 +285,19 @@ def apply_pressure2d(cfg: SimConfig2D, u, v, p, phi, dt):
 
 def project(cfg: SimConfig2D, u, v, phi, dt):
     """The 2D projection (Simulation2D.cpp:593-808): RHS, diagonal, the SOR
-    on (nx, ny, 1) views, the pressure-gradient update. Returns (u, v, p)."""
-    b = compute_rhs2d(cfg, u, v, dt)
-    diag = compute_diag2d(cfg, phi)
-    p = sor_pressure(cfg, phi[..., None], diag[..., None], b[..., None])[..., 0]
-    u, v = apply_pressure2d(cfg, u, v, p, phi, dt)
-    return u, v, p
+    on (nx, ny, 1) views, the pressure-gradient update. Returns (u, v, p).
+    A ``project`` span over the ``rhs``, ``diag``, ``sor`` and ``apply``
+    spans."""
+    with span("project"):
+        with span("rhs"):
+            b = compute_rhs2d(cfg, u, v, dt)
+        with span("diag"):
+            diag = compute_diag2d(cfg, phi)
+        with span("sor"):
+            p = sor_pressure(cfg, phi[..., None], diag[..., None], b[..., None])[..., 0]
+        with span("apply"):
+            u, v = apply_pressure2d(cfg, u, v, p, phi, dt)
+        return u, v, p
 
 
 def flip_update2d(cfg: SimConfig2D, pos, vel, u, v, old_u, old_v, alpha):
@@ -294,16 +308,23 @@ def flip_update2d(cfg: SimConfig2D, pos, vel, u, v, old_u, old_v, alpha):
 
 
 def step2d(state: SimState2D, dt, cfg: SimConfig2D) -> SimState2D:
-    """Advance the 2D state by one (already clamped) dt."""
-    pos = advect_rk3(cfg, state.u, state.v, state.pos, dt)
-    alpha = pic_flip_alpha(cfg, dt)
-    phi, _ = compute_level_set(cfg, pos)
-    u, v, uv, vv = transfer_to_grid(cfg, pos, state.vel)
-    iters = cfg.nx + cfg.ny + 2
-    u = extrapolate_full(u, uv, iters)
-    v = extrapolate_full(v, vv, iters)
-    old_u, old_v = u, v
-    v = add_gravity(cfg, v, dt)
-    u, v, _ = project(cfg, u, v, phi, dt)
-    vel = flip_update2d(cfg, pos, state.vel, u, v, old_u, old_v, alpha)
-    return SimState2D(pos=pos, vel=vel, u=u, v=v, phi=phi)
+    """Advance the 2D state by one (already clamped) dt: a ``step`` span
+    over the stages' spans (utils/trace.py)."""
+    with span("step"):
+        with span("advect"):
+            pos = advect_rk3(cfg, state.u, state.v, state.pos, dt)
+        alpha = pic_flip_alpha(cfg, dt)
+        phi, _ = compute_level_set(cfg, pos)
+        with span("p2g"):
+            u, v, uv, vv = transfer_to_grid(cfg, pos, state.vel)
+        iters = cfg.nx + cfg.ny + 2
+        with span("extrapolate"):
+            u = extrapolate_full(u, uv, iters)
+            v = extrapolate_full(v, vv, iters)
+        old_u, old_v = u, v
+        with span("gravity"):
+            v = add_gravity(cfg, v, dt)
+        u, v, _ = project(cfg, u, v, phi, dt)
+        with span("particle_update"):
+            vel = flip_update2d(cfg, pos, state.vel, u, v, old_u, old_v, alpha)
+        return SimState2D(pos=pos, vel=vel, u=u, v=v, phi=phi)

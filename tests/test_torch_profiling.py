@@ -1,8 +1,9 @@
-"""The per-stage step timer (utils/profiling.py) on the CPU: it marks every
-stage of the step, leaves the step's result unchanged and restores the
-functions it wrapped; its ``hooked`` does the same for any function. The
-reference's mark table (MARKS, SHORT, StageProfiler, profile_step,
-profile_step_apic) against the JAX package's."""
+"""The per-stage step timer (utils/profiling.py) on the CPU: it times every
+stage span of the step (utils/trace.py), leaves the step's result
+unchanged and leaves the step's functions as they were; its ``hooked``
+wraps any function and restores it. The reference's mark table (MARKS,
+SHORT, StageProfiler, profile_step, profile_step_apic) against the JAX
+package's."""
 
 import numpy as np
 import pytest
@@ -17,6 +18,12 @@ from fluidsimulation_tpu_torch.utils import profiling
 
 N = 12
 CFG = ft.SimConfig(nx=N, ny=N, nz=N, cells_per_meter=float(N))
+# The stage spans of a step, in the order it runs them: both 3D families,
+# and both 2D ones (no CSR index, 27-neighbourhood pass or blur).
+STAGES = ["advect", "csr", "sort", "seed", "pass", "sweeps", "p2g", "extrapolate", "gravity",
+          "rhs", "diag", "sor", "apply", "particle_update", "blur"]
+STAGES_2D = ["advect", "seed", "sweeps", "p2g", "extrapolate", "gravity", "rhs", "diag", "sor",
+             "apply", "particle_update"]
 
 
 @pytest.fixture(autouse=True)
@@ -34,8 +41,8 @@ def test_stage_times_marks_every_stage_and_keeps_the_step():
         torch.testing.assert_close(getattr(timed, name), getattr(plain, name), rtol=0, atol=0)
     assert len(rows) == len(totals) == 2
     for row, total in zip(rows, totals):
-        assert list(row) == profiling.STAGES
-        assert all(row[s] > 0 for s in profiling.STAGES)
+        assert list(row) == STAGES
+        assert all(row[s] > 0 for s in STAGES)
         assert sum(row.values()) <= total
     after = [getattr(m, a) for m, a in ((step3d, "build_csr"), (levelset, "sweep_closest"),
                                         (project, "sor_pressure"))]
@@ -43,7 +50,8 @@ def test_stage_times_marks_every_stage_and_keeps_the_step():
 
 
 def test_stage_times_marks_every_apic_stage_and_keeps_the_step():
-    """An ApicState is stepped by step_apic, with its own stages marked."""
+    """An ApicState is stepped by step_apic, its stages timed (its P2G and
+    G2P under p2g and particle_update)."""
     from fluidsimulation_tpu_torch.solver import apic
 
     before = (apic.p2g_apic, apic.g2p_apic, apic.advect_rk3_pic)
@@ -52,10 +60,9 @@ def test_stage_times_marks_every_apic_stage_and_keeps_the_step():
     plain = ft.simulate_apic(s0, 0.01, CFG, 2)
     for name in ("pos", "vel", "C", "u", "v", "w", "phi"):
         torch.testing.assert_close(getattr(timed, name), getattr(plain, name), rtol=0, atol=0)
-    assert "APIC P2G" in profiling.APIC_STAGES and "FLIP" not in profiling.APIC_STAGES
     for row, total in zip(rows, totals):
-        assert list(row) == profiling.APIC_STAGES
-        assert all(row[s] > 0 for s in profiling.APIC_STAGES)
+        assert list(row) == STAGES
+        assert all(row[s] > 0 for s in STAGES)
         assert sum(row.values()) <= total
     assert (apic.p2g_apic, apic.g2p_apic, apic.advect_rk3_pic) == before
 
@@ -63,22 +70,20 @@ def test_stage_times_marks_every_apic_stage_and_keeps_the_step():
 @pytest.mark.parametrize("apic", [False, True], ids=["flip", "apic"])
 def test_stage_times_marks_every_2d_stage_and_keeps_the_step(apic):
     """A SimState2D is stepped by step2d, an ApicState2D by step_apic2d,
-    each with its own stages marked (the 8 sweeps summed in one)."""
+    each with its own stages timed (the 8 sweeps in one span)."""
     from fluidsimulation_tpu_torch.solver import apic2d, step2d
 
     before = (step2d._sweep_axis2, step2d.sor_pressure, apic2d.p2g_apic2d)
     cfg = ft.SimConfig2D(nx=N, ny=N, cells_per_meter=float(N))
     init, step = (ft.init_apic_state2d, ft.step_apic2d) if apic else (ft.init_state2d, ft.step2d)
-    stages = profiling.APIC2D_STAGES if apic else profiling.STAGES_2D
     s0 = init(cfg, "cpu")
     timed, rows, totals = profiling.stage_times(s0, 0.01, cfg, 2)
     plain = step(step(s0, 0.01, cfg), 0.01, cfg)
     for name in ("pos", "vel", "u", "v", "phi", *(("C",) if apic else ())):
         torch.testing.assert_close(getattr(timed, name), getattr(plain, name), rtol=0, atol=0)
-    assert ("APIC P2G" in stages) is apic and ("FLIP" in stages) is not apic
     for row, total in zip(rows, totals):
-        assert list(row) == stages
-        assert all(row[s] > 0 for s in stages)
+        assert list(row) == STAGES_2D
+        assert all(row[s] > 0 for s in STAGES_2D)
         assert sum(row.values()) <= total
     assert (step2d._sweep_axis2, step2d.sor_pressure, apic2d.p2g_apic2d) == before
 
@@ -123,7 +128,7 @@ def test_marks_and_short_are_jax():
     assert profiling.SHORT == jax_profiling.SHORT
     assert sorted(profiling.STAGE_MARKS + JAX_ZERO + ["DRAW", "END_FRAME"]) == sorted(
         profiling.MARKS)
-    assert set(profiling.MARK_OF_STAGE) == set(profiling.STAGES) | set(profiling.APIC_STAGES)
+    assert list(profiling.MARK_OF_STAGE) == STAGES
 
 
 def test_table_is_jax_table():
