@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels from csrc/ (six, and the slab
+It builds the hand-written CUDA kernels from csrc/ (seven, and the slab
 entries of two of them), compares each with its plain PyTorch version on
 the card, and drives five 3D paths of the port, the 2D family's, the
 demo's --profile and --serve, three 256^3 paths and the multi-rank family
@@ -32,8 +32,9 @@ two:
 
 Every step of every path must launch each kernel the expected number of
 times (the 24 sweeps are one C call, one launch count); the combined-key
-pack, which no step calls, 0 times; an APIC step P2G and the FLIP gather 0
-times too. On the final
+pack, which no step calls, 0 times; an APIC step the FLIP P2G and the FLIP
+gather 0 times too, and its own P2G kernel once (a FLIP step never). On the
+final
 states of the first two paths it then drives the combined-key interpolation
 (core/interp_combined.py): the pack kernel, the interpolation of every
 particle through its table, and RK3 stages 2-3 through it. A 32^3 card step
@@ -64,12 +65,19 @@ Phases, each printing before the next:
   A  APIC: a 32^3 state stepped 3 times on the card vs the same steps on
      the CPU (1e-4 abs, C 2 m x 1e-4: apic_bound); 128^3 ppc 1 (1,000,188
      particles, dt = 1/60), 10 steps after 2 warm-up, median step and peak
-     device memory, then the pass, the sweeps and the SOR vs their plain
-     versions on the last step's inputs; the demo at its defaults with
-     --transfer apic (64^3, ppc 2, 60 steps at rate 0.5, --save-state),
-     median step, checkpoint reload bit for bit, and its sync count as
-     phase 5's; every step launching the pass, the sweeps and the SOR once
-     and no other kernel; all fields finite
+     device memory, then the pass, the sweeps, the SOR and the APIC P2G vs
+     their plain versions on the last step's inputs; 128^3 ppc 2
+     (8,001,504 particles, dt = 1/120), 3 steps after 2 warm-up, median
+     step and peak, then the APIC P2G kernel vs its plain form (validity
+     equal but at the threshold, faces within the bound of reordering each
+     face's sum, two launches bit-equal), timed (device time, by events,
+     the plain form, the bound) and the whole p2g_apic call (index,
+     gathers, kernel) by events; the demo at its defaults with --transfer apic (64^3, ppc 2,
+     60 steps at rate 0.5, --save-state), median step, checkpoint reload
+     bit for bit, the APIC P2G on its last step's inputs as at 128^3 ppc
+     2, and its sync count as phase 5's; every step launching the pass,
+     the sweeps, the APIC P2G and the SOR once and no other kernel; all
+     fields finite
   7  combined-key interpolation, on the final state of phase 3 (128^3,
      after phase 3's kernel checks; its times reported) and of phase 5
      (64^3 ppc 2; times printed only): the pack's launch count, the pack vs
@@ -189,6 +197,7 @@ FRAME_ATOL, FRAME_FRAC, FRAME_MAX = 2e-4, 1e-3, 0.5
 FIELDS = ("pos", "vel", "u", "v", "w", "phi")
 APIC_FIELDS = ("pos", "vel", "C", "u", "v", "w", "phi")
 APIC_STEPS = 10  # timed APIC steps at 128^3, after N_WARMUP
+APIC_PHYS_STEPS = 3  # timed APIC steps at 128^3 ppc 2, after N_WARMUP
 APIC_ATOL = 1e-4  # phase A's card-vs-CPU bound (apic_bound)
 
 TWO_D_DT = 1.0 / 120.0  # the 2D demo's dt: 1/60 at rate 0.5
@@ -311,16 +320,30 @@ def capture(store: dict):
         ("ops.project", "sor_pressure", "sor"),
         ("solver.step2d", "sor_pressure", "sor"),
         ("ops.flip", "g2p_flip", "g2p"),
+        ("ops.cuda_p2g_apic", "p2g_apic_sorted", "p2g_apic"),
+        ("solver.apic", "p2g_apic", "p2g_apic_call"),
     ], record)
 
 
 def kernel_table():
     """One entry per line of the kernels report. ``site`` names the capture
     key whose arguments the entry's wrapper takes."""
-    from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep
+    from fluidsimulation_tpu_torch.ops import (
+        cuda_g2p,
+        cuda_p2g,
+        cuda_p2g_apic,
+        cuda_seed,
+        cuda_sor,
+        cuda_sweep,
+    )
+    from fluidsimulation_tpu_torch.ops.apic import p2g_apic_cells
+    from fluidsimulation_tpu_torch.ops.common import cell_scale
 
     def p2g_plain(cfg, pcs, vels, start):
         return cuda_p2g.p2g_accumulate_plain(cfg, pcs, vels)
+
+    def p2g_apic_plain(cfg, pcs, vels, cs, start, thresh):
+        return p2g_apic_cells(cfg, pcs, vels, cs.reshape(-1, 3, 3), cell_scale(cfg, pcs.device))
 
     return {
         "seed": dict(
@@ -355,15 +378,29 @@ def kernel_table():
             site="sor", name="sor_pressure", source="fluidsimulation_tpu_torch/csrc/sor.cu",
             replaces="fluidsimulation_tpu/ops/pallas_sor.py:68",
         ),
+        # The launch alone, on the CSR-sorted inputs its caller made.
+        "p2g_apic": dict(
+            module=cuda_p2g_apic, wrapper=cuda_p2g_apic.p2g_apic_sorted, plain=p2g_apic_plain,
+            site="p2g_apic", name="p2g_apic", source="fluidsimulation_tpu_torch/csrc/p2g_apic.cu",
+            replaces="none: fluidsimulation_tpu/ops/apic.py::p2g_apic is XLA's scatter",
+        ),
     }
 
 
 def per_step_launches() -> dict:
     """Kernel module -> launches in one step, on every path."""
     from fluidsimulation_tpu_torch.core import cuda_pack
-    from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep
+    from fluidsimulation_tpu_torch.ops import (
+        cuda_g2p,
+        cuda_p2g,
+        cuda_p2g_apic,
+        cuda_seed,
+        cuda_sor,
+        cuda_sweep,
+    )
 
-    return {cuda_seed: 1, cuda_sweep: 1, cuda_p2g: 1, cuda_sor: 1, cuda_g2p: 1, cuda_pack: 0}
+    return {cuda_seed: 1, cuda_sweep: 1, cuda_p2g: 1, cuda_sor: 1, cuda_g2p: 1, cuda_pack: 0,
+            cuda_p2g_apic: 0}
 
 
 class LaunchCheck:
@@ -417,13 +454,22 @@ def bound(key: str, args) -> tuple[float, str]:
       SOR: 6 neighbour subtractions, b - nms, two products, a division and
         a sum, 11 per fluid cell per iteration (this run's fluid cells);
       the combined pack: copies, no operations; it reads the three grids
-        and writes the (nx*ny*(nz-1), 64) table.
+        and writes the (nx*ny*(nz-1), 64) table;
+      APIC P2G: per particle and component, each axis's shift, t - 0.5 and
+        floor (9) and at its 3 nodes d, the spline's 6 operations and 2
+        compares, and the lever's negation and division (99), and at each of
+        the 27 nodes the weight's 2 products, the affine value's 3 products
+        and 3 sums, w * value and the 2 accumulations (297): 1,215 a
+        particle, and the division, clamp and compare at each face; its
+        bytes: the particle's position, velocity and C (60 B) read, the CSR
+        offsets read, and the three grids and their validity (5 B a face)
+        written.
     """
     cfg = args[0]
     # The grid from the arguments' level set, so that the 2D solve's
     # (nx, ny, 1) counts too.
     cells = args[1].numel() if key == "sor" else cfg.nx * cfg.ny * cfg.nz
-    if key in ("p2g", "p2g2", "g2p", "pack"):
+    if key in ("p2g", "p2g2", "g2p", "pack", "p2g_apic"):
         faces = sum(math.prod(s) for s in (cfg.u_shape(), cfg.v_shape(), cfg.w_shape()))
     if key == "seed":
         nbytes, ops = (12 + 4 + 12) * cells, 27 * 11 * cells
@@ -435,6 +481,9 @@ def bound(key: str, args) -> tuple[float, str]:
     elif key == "g2p":
         n = args[1].shape[0]
         nbytes, ops = 48 * n + 2 * 4 * faces, 213 * n
+    elif key == "p2g_apic":
+        n = args[1].shape[0]
+        nbytes, ops = 60 * n + 4 * (cells + 1) + 5 * faces, 1215 * n + 3 * faces
     elif key == "sor":
         fluid = int((args[1] < 0).sum())
         nbytes, ops = 4 * 4 * cells, 11 * fluid * cfg.sor_iterations
@@ -464,9 +513,34 @@ def bound(key: str, args) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def compare(key: str, got, want) -> tuple[float, str]:
-    """Hold a kernel's outputs against its plain version's. Returns the
-    largest absolute difference and a note; raises past the tolerance."""
+def apic_sums(cfg, pcs, vels, cs) -> list:
+    """For each component of the APIC P2G of pcs (cell units), vels and cs
+    ((N, 9) affine rows), formed as ops/apic.py::p2g_apic_cells forms it:
+    each face's weight sum, its sum of w |value| and its count of terms."""
+    from fluidsimulation_tpu_torch.ops.apic import _component_nodes, _shapes
+    from fluidsimulation_tpu_torch.ops.common import cell_scale
+
+    m = cell_scale(cfg, pcs.device)
+    out = []
+    for comp_axis, shape in _shapes(cfg):
+        _, sy, sz = shape
+        amt, sabs, terms = (torch.zeros(math.prod(shape), dtype=torch.float32, device=pcs.device)
+                            for _ in range(3))
+        crow = cs[:, 3 * comp_axis:3 * comp_axis + 3]
+        for idx, ok, w, dxm in _component_nodes(cfg, pcs, comp_axis, m):
+            lin = torch.where(ok, (idx[0] * sy + idx[1]) * sz + idx[2], 0)
+            val = vels[:, comp_axis] + crow[:, 0] * dxm[0] + crow[:, 1] * dxm[1] + crow[:, 2] * dxm[2]
+            amt.index_add_(0, lin, torch.where(ok, w, 0.0))
+            sabs.index_add_(0, lin, torch.where(ok, w * val.abs(), 0.0))
+            terms.index_add_(0, lin, ok.float())
+        out.append(tuple(t.reshape(shape) for t in (amt, sabs, terms)))
+    return out
+
+
+def compare(key: str, got, want, args=None) -> tuple[float, str]:
+    """Hold a kernel's outputs against its plain version's (``args``: the
+    inputs both took). Returns the largest absolute difference and a note;
+    raises past the tolerance."""
     if key in ("sor", "sweep"):
         # -fmad=false, IEEE sqrt and division, the plain version's operation
         # order: bit for bit.
@@ -503,6 +577,43 @@ def compare(key: str, got, want) -> tuple[float, str]:
                 raise AssertionError(f"{key}: normalised faces differ by up to {float(d.max())}")
             err = max(err, float(d.max()) if d.numel() else 0.0)
         return err, f"validity equal ({flips} faces within 1e-6 of the threshold flip)"
+    if key == "p2g_apic":
+        # Summation order differs (the kernel's CSR order and pieces vs the
+        # plain form's index_add_ atomics): validity equal except within
+        # 1e-6 of the threshold; the same faces non-finite; on faces valid
+        # in both, the difference within what reordering a sum of n terms
+        # can move it, 4 n u (sum of w |value|) / (sum of w), u = 2^-24
+        # (each sum moves by at most (n - 1) u times the sum of its terms'
+        # sizes). A dropped or doubled term of a face moves it by about its
+        # term's share, past that bound for all but the densest faces.
+        # Beside it, the largest difference as a share of |b| + the grid's
+        # rms (tests/test_torch_apic_kernel.py bounds that by 1e-5 where no
+        # cell is dense).
+        from fluidsimulation_tpu_torch.ops.apic import APIC_WEIGHT_THRESH
+
+        err, flips, worst, tightest = 0.0, 0, 0.0, 0.0
+        for g, b, vg, vb, (amt, sabs, terms) in zip(got[:3], want[:3], got[3:], want[3:],
+                                                   apic_sums(*args[:4])):
+            near = (amt - APIC_WEIGHT_THRESH).abs() < 1e-6
+            bad = (vg != vb) & ~near
+            if bool(bad.any()):
+                raise AssertionError(f"{key}: {int(bad.sum())} faces differ in validity")
+            if not torch.equal(g.isfinite(), b.isfinite()):
+                raise AssertionError(f"{key}: the non-finite faces differ")
+            flips += int((vg != vb).sum())
+            both = vg & vb & b.isfinite()
+            d, ref = (g - b).abs()[both], b.abs()[both]
+            if d.numel():
+                limit = 4 * terms[both] * 2.0**-24 * sabs[both] / amt[both]
+                # 0 where equal (the limit is 0 where every term is).
+                tightest = max(tightest, float(torch.where(d == 0, 0.0, d / limit).max()))
+                worst = max(worst, float((d / (ref + ref.square().mean().sqrt())).max()))
+                err = max(err, float(d.max()))
+        if tightest > 1:
+            raise AssertionError(f"{key}: faces differ by up to {tightest} of the reordering bound")
+        return err, (f"validity equal ({flips} faces within 1e-6 of the threshold flip), "
+                     f"largest difference {tightest!r} of the reordering bound, {worst!r} of "
+                     f"|b| + rms")
     raise KeyError(key)
 
 
@@ -525,8 +636,8 @@ def check_kernels(table, keys, captured, label: str, results: dict, timed=(),
         got = k["wrapper"](*args)
         want = k["plain"](*args)
         torch.cuda.synchronize()
-        err, note = compare(key, got, want)
-        if key in ("p2g", "p2g2", "seed", "g2p"):
+        err, note = compare(key, got, want, args)
+        if key in ("p2g", "p2g2", "seed", "g2p", "p2g_apic"):
             # No atomics, a fixed order: a second launch gives the same bits.
             again = k["wrapper"](*args)
             if not all(torch.equal(a, b) for a, b in zip(tensors(got), tensors(again))):
@@ -891,11 +1002,12 @@ def run_physical(table, results, card):
 
 def apic_launches() -> dict:
     """Kernel module -> launches in one APIC step: the 27-neighbourhood
-    pass, the sweeps and the SOR once; P2G, the FLIP gather and the pack
-    never (the APIC transfers are plain PyTorch)."""
-    from fluidsimulation_tpu_torch.ops import cuda_seed, cuda_sor, cuda_sweep
+    pass, the sweeps, the APIC P2G and the SOR once; the FLIP P2G, the FLIP
+    gather and the pack never (G2P is plain PyTorch)."""
+    from fluidsimulation_tpu_torch.ops import cuda_p2g_apic, cuda_seed, cuda_sor, cuda_sweep
 
-    return {m: int(m in (cuda_seed, cuda_sweep, cuda_sor)) for m in per_step_launches()}
+    return {m: int(m in (cuda_seed, cuda_sweep, cuda_p2g_apic, cuda_sor))
+            for m in per_step_launches()}
 
 
 def apic_bound(name: str, cfg) -> float:
@@ -904,6 +1016,18 @@ def apic_bound(name: str, cfg) -> float:
     sum w |x_i - x_p| about half a cell: 2 m x 1e-4 (m = nx: the grids
     here are cubes and squares)."""
     return 2 * cfg.nx * APIC_ATOL if name == "C" else APIC_ATOL
+
+
+def p2g_apic_call_ms(captured, label: str, card: str) -> float:
+    """The whole APIC P2G on the card (the index of the particles, their
+    gather into its order and the kernel: solver/apic.py's ``p2g`` span)
+    by CUDA events, on the arguments the step gave it."""
+    from fluidsimulation_tpu_torch.ops.apic import p2g_apic
+
+    ms = cuda_ms(lambda: p2g_apic(*captured["p2g_apic_call"]), 20)
+    say(f"phase 2 [{label}] p2g_apic: the whole call (CSR index, gathers, kernel) {ms!r} ms by "
+        f"events on {card}")
+    return ms
 
 
 def run_apic(table, results, card) -> dict:
@@ -961,19 +1085,53 @@ def run_apic(table, results, card) -> dict:
         f"finite, mean y {y0!r} -> {y1!r}; median step {step_ms!r} ms over {len(times)} steps "
         f"after {N_WARMUP} warm-up (min {min(times)!r}, max {max(times)!r}); peak device memory "
         f"{peak} B ({peak / 2**30:.3f} GiB) on {card}")
-    check_kernels(table, ("seed", "sweep", "sor"), captured, f"APIC {MAIN_N}^3", results,
-                  timed=("seed", "sweep", "sor"))
+    check_kernels(table, ("seed", "sweep", "sor", "p2g_apic"), captured, f"APIC {MAIN_N}^3",
+                  results, timed=("seed", "sweep", "sor"))
     del state, captured
     label = f"{MAIN_N}^3 ppc 1"
     out.update(step_ms={label: step_ms}, step_times={label: times}, peak_bytes={label: peak},
                launches={label: launches})
 
+    # The physical 128^3 configuration with APIC: the P2G kernel timed on
+    # its last step's inputs.
+    cfg = ft.SimConfig(nx=PHYS_N, ny=PHYS_N, nz=PHYS_N, cells_per_meter=float(PHYS_N),
+                       particles_per_cell_axis=2)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = ft.init_apic_state(cfg, DEVICE)
+    if state.pos.shape[0] != PHYS_PARTICLES:
+        raise AssertionError(f"phase A: expected {PHYS_PARTICLES} particles, "
+                             f"got {state.pos.shape[0]}")
+    check = LaunchCheck(f"phase A (APIC {PHYS_N}^3 ppc 2)", apic_launches())
+    captured = {}
+    state, times = timed_steps(check, N_WARMUP + APIC_PHYS_STEPS, state, PHYS_DT, cfg, captured,
+                               step=ft.step_apic)
+    label = f"{PHYS_N}^3 ppc 2"
+    out["launches"][label] = check.totals()
+    check_finite("phase A", state)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(times)
+    say(f"phase A: APIC {label}, {PHYS_PARTICLES} particles, dt={PHYS_DT!r}: all fields finite; "
+        f"median step {step_ms!r} ms over {len(times)} steps after {N_WARMUP} warm-up (min "
+        f"{min(times)!r}, max {max(times)!r}); peak device memory {peak} B "
+        f"({peak / 2**30:.3f} GiB) on {card}")
+    check_kernels(table, ("p2g_apic",), captured, f"APIC {label}", results, timed=("p2g_apic",),
+                  reported=("p2g_apic",))
+    out["p2g_apic_call_ms"] = {label: p2g_apic_call_ms(captured, label, card)}
+    out["step_ms"][label], out["step_times"][label], out["peak_bytes"][label] = step_ms, times, peak
+    del state, captured
+
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     check = LaunchCheck("phase A (APIC demo 64^3 ppc 2)", apic_launches())
-    demo_ms, state, demo_cfg, demo_dt, _ = drive_demo("phase A demo", check, "apic",
-                                                       load_apic_state, APIC_FIELDS, card)
+    demo_ms, state, demo_cfg, demo_dt, captured = drive_demo("phase A demo", check, "apic",
+                                                              load_apic_state, APIC_FIELDS, card)
     demo_launches = check.totals()
+    check_kernels(table, ("p2g_apic",), captured, "APIC demo 64^3 ppc 2", results,
+                  timed=("p2g_apic",))
+    out["p2g_apic_call_ms"]["demo 64^3 ppc 2"] = p2g_apic_call_ms(captured, "APIC demo 64^3 ppc 2",
+                                                                  card)
+    del captured
     check_host_syncs("phase A demo host syncs", ft.step_apic, state, demo_dt, demo_cfg)
     demo_peak = torch.cuda.max_memory_allocated()
     say(f"phase A demo: peak device memory {demo_peak} B ({demo_peak / 2**30:.3f} GiB)")
@@ -2260,7 +2418,8 @@ def main() -> int:
         {
             "name": k["name"], "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
-            "launches": (demo_launches if key == "p2g2" else launches)[symbol[key]],
+            "launches": (apic["launches"]["demo 64^3 ppc 2"] if key == "p2g_apic"
+                         else demo_launches if key == "p2g2" else launches)[symbol[key]],
             "max_abs_err": results[key]["max_abs_err"],
             "ms": results[key]["ms"], "plain_ms": results[key]["plain_ms"],
             "bound_ms": results[key]["bound_ms"], "bound_by": results[key]["bound_by"],

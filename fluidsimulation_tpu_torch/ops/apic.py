@@ -8,14 +8,20 @@ of every particle is (dx^2/4) I, so C = 4 B m^2 needs no solve. C has shape
 cell units put cell centres at integers and the U faces at x = i - 0.5, as
 in ops/p2g.py.
 
-P2G adds each of the 27 spline nodes' weighted values and weights into the
-faces with one ``index_add_`` a node and an accumulator, in JAX's node order
-(ox, oy, oz outer to inner): on the CPU each face then sums its terms in the
-order of JAX's scatter of the concatenated nodes, bit for bit. On the card
-``index_add_`` adds by atomics, in no fixed order. G2P gathers with clamp
-addressing. No hand kernel: the JAX package has no Pallas kernel for these
-transfers, and its packed and table forms (pack_mac9, g2p_apic_packed,
-ApicTable, ops/apic_super.py) are TPU layouts, not ported.
+P2G's plain form (p2g_apic_cells) adds each of the 27 spline nodes'
+weighted values and weights into the faces with one ``index_add_`` a node
+and an accumulator, in JAX's node order (ox, oy, oz outer to inner): on the
+CPU each face then sums its terms in the order of JAX's scatter of the
+concatenated nodes, bit for bit. On the card p2g_apic runs the hand kernel
+of ops/cuda_p2g_apic.py (csrc/p2g_apic.cu), a gather over a CSR index of
+the particles with no atomics: each term is formed as here, and each face
+sums them in the order column (cx, then cy), then the CSR run along z, then
+slot (a dense cell's runs in pieces, whose sums are added in that order),
+the same bits on every run. The JAX package has no Pallas kernel for
+these transfers, so the kernel replaces none. G2P gathers with clamp
+addressing, in plain PyTorch. The JAX package's packed and table forms
+(pack_mac9, g2p_apic_packed, ApicTable, ops/apic_super.py) are TPU layouts,
+not ported.
 
 A NaN coordinate gets base node 0, as JAX's float-to-int conversion of
 floor(NaN) gives: the particle's nodes 0-2 stay in range with weight 0 and
@@ -31,6 +37,7 @@ import torch
 
 from ..core.config import SimConfig
 from .common import cell_scale, index_of, shift
+from .cuda_p2g_apic import p2g_apic_gather
 
 # Validity threshold for face weights: quadratic B-spline weights are
 # smaller than hats (at most 0.75 per axis); faces a particle meaningfully
@@ -95,13 +102,18 @@ def _shapes(cfg: SimConfig):
 def p2g_apic(cfg: SimConfig, pos, vel, C):
     """APIC P2G for the three MAC components.
 
-    pos: (N, 3) meters; vel: (N, 3) m/s; C: (N, 3, 3) 1/s. Returns
-    (u, v, w, uv, vv, wv) as ops/p2g.py::transfer_to_grid does: the face
-    values and their validity (weight above APIC_WEIGHT_THRESH); boundary
-    faces are 0 and valid.
+    pos: (N, 3) meters; vel: (N, 3) m/s; C: (N, 3, 3) 1/s; any order and
+    subset of the particles. Returns (u, v, w, uv, vv, wv) as
+    ops/p2g.py::transfer_to_grid does: the face values and their validity
+    (weight above APIC_WEIGHT_THRESH); boundary faces are 0 and valid. A CPU
+    tensor takes the plain form; a CUDA tensor the kernel, over a CSR index
+    of these particles.
     """
     m = cell_scale(cfg, pos.device)
-    return p2g_apic_cells(cfg, pos * m, vel, C, m)
+    pc = pos * m
+    if pc.device.type == "cpu":
+        return p2g_apic_cells(cfg, pc, vel, C, m)
+    return p2g_apic_gather(cfg, pc, vel, C, APIC_WEIGHT_THRESH)
 
 
 def p2g_apic_cells(cfg: SimConfig, pc, vel, C, m, x0: int = 0):

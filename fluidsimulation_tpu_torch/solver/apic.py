@@ -12,11 +12,11 @@ in place of the FLIP blend, so no old-grid snapshot is kept:
   G2P -> blur phi
 
 The level set is the port's CSR level set, as in step3d.py. On the card the
-27-neighbourhood pass, the sweeps and the SOR are the CUDA kernels of
-ops/cuda_*.py; the transfers are plain PyTorch (the JAX package has no
-Pallas kernel for them), and the P2G and FLIP kernels are not called. The
-JAX package's fast forms (its table-seeded level set and windowed
-transfers) are TPU layouts and are not ported.
+27-neighbourhood pass, the sweeps, the APIC P2G and the SOR are the CUDA
+kernels of ops/cuda_*.py; G2P is plain PyTorch (the JAX package has no
+Pallas kernel for either transfer), and the FLIP P2G and gather kernels are
+not called. The JAX package's fast forms (its table-seeded level set and
+windowed transfers) are TPU layouts and are not ported.
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ def step_apic(state: ApicState, dt, cfg: SimConfig) -> ApicState:
             walk = sort_particles(cfg, csr, pos, state.vel)
         phi, _ = compute_level_set(cfg, csr, walk.pcs)
         # P2G in the particles' own order: on the CPU its sums are then JAX's
-        # bit for bit (ops/apic.py).
+        # bit for bit (ops/apic.py); on the card it builds its own index.
         with span("p2g"):
             u, v, w, uv, vv, wv = p2g_apic(cfg, pos, state.vel, state.C)
         # One ring, as the reference: every face G2P reads with a nonzero

@@ -22,10 +22,11 @@ rule). The combined-key pack (pure copies) must equal its plain version
 bit for bit (int32 views) at shapes past every ragged edge of its tiles, at
 64^3 and at 128^3, also with NaN, +-inf and -0.0 next to its zero halo, and
 two launches must give the same bits. The renderer (plain PyTorch, no hand
-kernel) gives the CPU's 32^3 frame on the card. An APIC step (plain PyTorch
-transfers, atomic sums on the card) stays within phase A's bound of the
-CPU's, and launches the pass, the sweeps and the SOR once each and no other
-kernel. The 2D projection's SOR runs the same kernel on (nx, ny, 1) views
+kernel) gives the CPU's 32^3 frame on the card. An APIC step (its P2G the
+kernel of tests/test_torch_apic_kernel.py, summing in another order than
+the CPU) stays within phase A's bound of the CPU's, and launches the pass,
+the sweeps, the APIC P2G and the SOR once each and no other kernel. The 2D
+projection's SOR runs the same kernel on (nx, ny, 1) views
 with the 2D omega and 120 iterations, bit for bit the plain version; a 2D
 step (FLIP and APIC) on the card stays within the APIC bound of the CPU's
 and launches the SOR once and no other kernel.
@@ -39,7 +40,14 @@ import fluidsimulation_tpu_torch as ft
 from fluidsimulation_tpu_torch.core import cuda_pack
 from fluidsimulation_tpu_torch.core.interp import interp_mac3_vec
 from fluidsimulation_tpu_torch.core.seeding import noise_grids
-from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep
+from fluidsimulation_tpu_torch.ops import (
+    cuda_g2p,
+    cuda_p2g,
+    cuda_p2g_apic,
+    cuda_seed,
+    cuda_sor,
+    cuda_sweep,
+)
 from fluidsimulation_tpu_torch.ops.binning import build_csr, build_csr_cells, sort_particles
 from fluidsimulation_tpu_torch.ops.flip import flip_update_carry
 from fluidsimulation_tpu_torch.ops.levelset import seed_own_cell
@@ -558,8 +566,8 @@ def test_render_on_card_matches_cpu(dev, kw):
 
 def _apic_close(card, cpu, cfg):
     """The APIC bound of chip_smoke.py phase A: 1e-4 abs, and for C that
-    bound carried through G2P's lever (2 m x 1e-4): P2G's index_add_ sums
-    by atomics on the card, in another order than the CPU's."""
+    bound carried through G2P's lever (2 m x 1e-4): P2G sums each face in
+    another order on the card than on the CPU."""
     for name in ("pos", "vel", "C", "u", "v", "w", "phi"):
         atol = 2 * cfg.nx * 1e-4 if name == "C" else 1e-4
         torch.testing.assert_close(getattr(card, name).cpu(), getattr(cpu, name), rtol=0,
@@ -578,16 +586,16 @@ def test_apic_step_on_card_matches_cpu(dev):
 
 
 def test_apic_step_launches(dev):
-    """One APIC step launches the 27-neighbourhood pass, the sweeps and the
-    SOR once each, and never P2G, the FLIP gather or the pack (its
-    transfers are plain PyTorch)."""
+    """One APIC step launches the 27-neighbourhood pass, the sweeps, the
+    APIC P2G and the SOR once each, and never the FLIP P2G, the FLIP gather
+    or the pack (its G2P is plain PyTorch)."""
     s = ft.init_apic_state(CFG, dev)
     s = ft.step_apic(s, 1.0 / 60.0, CFG)
-    modules = (cuda_seed, cuda_sweep, cuda_sor, cuda_p2g, cuda_g2p, cuda_pack)
+    modules = (cuda_seed, cuda_sweep, cuda_p2g_apic, cuda_sor, cuda_p2g, cuda_g2p, cuda_pack)
     before = [m.KERNEL.launches for m in modules]
     ft.step_apic(s, 1.0 / 60.0, CFG)
     torch.cuda.synchronize()
-    assert [m.KERNEL.launches - b for m, b in zip(modules, before)] == [1, 1, 1, 0, 0, 0]
+    assert [m.KERNEL.launches - b for m, b in zip(modules, before)] == [1, 1, 1, 1, 0, 0, 0]
 
 
 @pytest.mark.parametrize("shape", [(13, 9), (64, 64), (512, 512)],
