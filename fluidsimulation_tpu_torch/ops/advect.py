@@ -4,6 +4,10 @@ Stage offsets 0.5*dt and 0.75*dt and weights (2/9, 3/9, 4/9)
 (Simulation3D.cpp:211-221); the final position is clamped to
 [-0.4/m, 1-0.6/m] (gpAdvect.hlsl:65-67). Scalars are float32, as in the
 JAX package's jitted step.
+
+Each stage's grid gather, the interpolation of (u, v, w) at the particles,
+runs in a ``gather`` span of utils/trace.py (inside the step's ``advect``
+span): three a call without k1, two with it.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import torch
 
 from ..core.config import SimConfig
 from ..core.interp import interp_mac3_vec
+from ..utils.trace import span
 from .common import cell_scale
 
 
@@ -21,7 +26,9 @@ def _rk3(cfg: SimConfig, u, v, w, k1, pos, dt):
     m = cell_scale(cfg, pos.device)
 
     def vel_at(p):
-        return interp_mac3_vec(u, v, w, p * m)
+        pc = p * m  # outside the span: it holds the interpolation's call alone
+        with span("gather"):
+            return interp_mac3_vec(u, v, w, pc)
 
     if k1 is None:
         k1 = vel_at(pos)

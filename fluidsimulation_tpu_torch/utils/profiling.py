@@ -53,8 +53,10 @@ from . import trace
 
 TOP_EVENTS = 10  # device events listed by time under each configuration
 # Spans that are not stages: the step's root, the parents whose children are
-# timed in their place, and the host waits inside a stage.
-NOT_STAGES = {trace.STEP, "level_set", "project", trace.SYNC}
+# timed in their place, and the spans inside a stage, whose time the stage's
+# span already holds: the host waits, and the RK3 gathers inside advect
+# (ops/advect.py), so that ADVECT counts their time once.
+NOT_STAGES = {trace.STEP, "level_set", "project", trace.SYNC, "gather"}
 
 # The reference's profiler marks, the GPUProfilerMark enum
 # (GPUProfiler.h:16-44), in its order; copy of the JAX package's

@@ -2,8 +2,8 @@
 default, with one shared null context and nothing recorded; on, each span
 with its parent and step, stamped on the clock torch.profiler stamps its
 host records with; the per-step sync counter; the spans each of the four step
-functions emits, in step order under one ``step`` root; and the same state,
-bit for bit, with tracing on and off.
+functions emits, in step order under one ``step`` root, the RK3 gathers'
+among them; and the same state, bit for bit, with tracing on and off.
 
 Marked ``cuda`` (skipped without a card): one step of each 3D family at the
 demo's size makes as many host syncs as ``set_sync_debug_mode("warn")``
@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import fluidsimulation_tpu_torch as ft
+from fluidsimulation_tpu_torch.ops import advect
 from fluidsimulation_tpu_torch.utils import trace
 from fluidsimulation_tpu_torch.utils.metrics import check_state
 
@@ -28,9 +29,12 @@ DT = 0.01
 # (span, parent) in the order each family's step opens them. Each sync
 # span is a host wait on the card: the copy of the cell scale
 # (ops/common.py::cell_scale, solver/step2d.py::_scale) and the CSR build's
-# bincount, which counts 2.
+# bincount, which counts 2. The 3D advection's grid gathers are each a
+# gather span inside advect (ops/advect.py): two a step, as both 3D
+# families give RK3 its first stage (FLIP's carried k1, APIC's velocity).
 PARENT = {"step": None, "seed": "level_set", "pass": "level_set", "sweeps": "level_set",
-          "rhs": "project", "diag": "project", "sor": "project", "apply": "project"}
+          "rhs": "project", "diag": "project", "sor": "project", "apply": "project",
+          "gather": "advect"}
 
 
 def spans(*names):
@@ -47,7 +51,8 @@ def spans(*names):
 
 LEVEL_SET_3D = ("level_set", "seed", "pass", "sweeps")
 PROJECT = ("project", "rhs", "diag", "sor", "apply")
-FIRST_3D = ("step", "advect", "sync", "csr", "sync", "sync", "sort", "sync", *LEVEL_SET_3D)
+FIRST_3D = ("step", "advect", "sync", "gather", "gather", "csr", "sync", "sync", "sort", "sync",
+            *LEVEL_SET_3D)
 SPANS_FLIP = spans(*FIRST_3D, "p2g", "extrapolate", "gravity", *PROJECT, "particle_update",
                    "blur")
 SPANS_APIC = spans(*FIRST_3D, "p2g", "sync", "extrapolate", "gravity", *PROJECT,
@@ -194,6 +199,28 @@ def test_the_state_is_bit_equal_with_tracing_on_and_off(family):
         torch.testing.assert_close(getattr(on, name), getattr(off, name), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("k1", [True, False], ids=["with_k1", "without_k1"])
+def test_rk3_opens_a_gather_span_a_stage_inside_advect(k1):
+    """_rk3 gathers the grids once a stage it computes (2 with k1 given, 3
+    without), each inside a gather span, a child of advect; its one host
+    wait (the cell scale's copy) lies outside every gather, and the
+    positions are those of a call with recording off, bit for bit."""
+    s = ft.step(ft.init_state(CFG, "cpu"), DT, CFG)
+    given = s.k1 if k1 else None
+    off = advect._rk3(CFG, s.u, s.v, s.w, given, s.pos, DT)
+    with trace.recording() as rec:
+        with trace.span("step"), trace.span("advect"):
+            on = advect._rk3(CFG, s.u, s.v, s.w, given, s.pos, DT)
+    gathers = [x for x in rec.spans if x.name == "gather"]
+    syncs = [x for x in rec.spans if x.name == "sync"]
+    assert len(gathers) == (2 if k1 else 3)
+    assert all(g.parent == "advect" and g.step == 0 for g in gathers)
+    assert not any(x.parent == "gather" for x in rec.spans)
+    assert rec.counts == {0: {"sync": 1}} and len(syncs) == 1
+    assert all(x.t1 <= g.t0 or g.t1 <= x.t0 for g in gathers for x in syncs)
+    torch.testing.assert_close(on, off, rtol=0, atol=0)
+
+
 def test_check_state_records_no_span_and_no_sync():
     """The demo's check runs between steps and feeds no metric: it adds
     nothing to a recording, so no step's counter carries its reads."""
@@ -221,8 +248,12 @@ def dev():
 @pytest.mark.parametrize("family", ["flip", "apic"])
 def test_host_syncs_are_the_sync_warnings_on_card(dev, family):
     """One step at the demo's size (after two to warm up): the step's
-    ``sync`` count equals the warnings of set_sync_debug_mode("warn")."""
+    ``sync`` count equals the warnings of set_sync_debug_mode("warn"). On
+    the card the APIC P2G indexes its particles itself
+    (ops/cuda_p2g_apic.py: build_csr_cells' bincount), 2 more than the
+    CPU step's count."""
     init, step, _, _, _, syncs = FAMILIES[family]
+    syncs += 2 if family == "apic" else 0
     s = init(DEMO, dev)
     for _ in range(2):
         s = step(s, 1.0 / 120.0, DEMO)
