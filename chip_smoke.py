@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels from csrc/ (seven, and the slab
+It builds the hand-written CUDA kernels from csrc/ (eight, and the slab
 entries of two of them), compares each with its plain PyTorch version on
 the card, and drives five 3D paths of the port, the 2D family's, the
 demo's --profile and --serve, three 256^3 paths and the multi-rank family
@@ -31,7 +31,8 @@ two:
     a 20-step guarded soak at ppc 2 (65,548,256 particles).
 
 Every step of every path must launch each kernel the expected number of
-times (the 24 sweeps are one C call, one launch count); the combined-key
+times (the 24 sweeps are one C call, one launch count; the RK3 gather twice
+in a 3D step, stages 2 and 3, and never in 2D); the combined-key
 pack, which no step calls, 0 times; an APIC step the FLIP P2G and the FLIP
 gather 0 times too, and its own P2G kernel once (a FLIP step never). On the
 final
@@ -47,8 +48,9 @@ Phases, each printing before the next:
   2  kernels vs plain versions at 32^3 (here), at 128^3 (after phase 3),
      at 64^3/ppc 2 (after phase 5), at 128^3/ppc 2 (after phase 6) and,
      for the pass, the sweeps and the SOR, at the APIC 128^3 step (phase
-     A), on the inputs each kernel received in the last step of the path; P2G, the
-     27-neighbourhood pass and the FLIP gather launched twice must give the
+     A), on the inputs each kernel received in the last step of the path
+     (the RK3 gather: its last call, stage 3); P2G, the 27-neighbourhood
+     pass, the FLIP gather and the RK3 gather launched twice must give the
      same bits; at the last three, every kernel's device time under
      torch.profiler (the report's ms) and its time by events, the sweeps
      of each axis timed alone, the SOR's fluid cells per colour, grid
@@ -126,14 +128,17 @@ Phases, each printing before the next:
      8,193,532 particles, dt 1/60, 2 warm-up and 8 timed steps (median by
      CUDA events), peak device memory, all fields finite, the centre of
      mass fallen, then kernels 1-5 vs their plain versions on the last
-     step's inputs, timed, with the sweeps by axis and the SOR's counters;
+     step's inputs, timed, with the sweeps by axis and the SOR's counters,
+     and the RK3 gather vs its plain chain, bit for bit, timed;
      B2, APIC at ppc 1, 1 warm-up and 4 timed steps, each launching the
      pass, the sweeps and the SOR and no other kernel, median step and
      peak; B3, the soak: ppc 2, 65,548,256 particles, dt 1/240, 20 steps
      of step_guarded, healthy on every one, |v|max and mean y every 5,
-     median step and peak, then P2G's ppc >= 2 path vs its plain version
-     on the last step's inputs (if the plain version does not fit, the
-     bytes it asked for are printed; phase 6 holds it at 128^3 ppc 2)
+     median step and peak, then the RK3 gather vs its plain chain on the
+     last step's inputs, bit for bit, timed, and P2G's ppc >= 2
+     path vs its plain version on the last step's inputs (if the plain
+     version does not fit, the bytes it asked for are printed; phase 6
+     holds it at 128^3 ppc 2)
   M  the multi-rank family (parallel/, render/sharded.py), after phase B:
      4 ranks over gloo sharing the card (NCCL refuses two ranks of one
      communicator on one card; gloo's send/recv take no CUDA tensor, so
@@ -145,10 +150,10 @@ Phases, each printing before the next:
      1e-4, and it is bit for bit; APIC: apic_bound, beside two one-device
      runs' own difference), no particle dropped, every rank launching the
      pass, P2G and the FLIP gather once, fst_sweeps 8 times (y/z),
-     fst_sweep_x_carry 8 (the relayed x-sweeps) and fst_sor_half 200 a
-     step, fst_sor and the pack never; the two new entries against their
-     plain versions on every rank's last inputs, and timed alone on rank
-     1's; M4, the halo SOR at 128^3 against fst_sor; M5, an 800x600
+     fst_sweep_x_carry 8 (the relayed x-sweeps), fst_sor_half 200 and the
+     RK3 gather 3 (APIC 2) a step, fst_sor and the pack never; the two new
+     entries against their plain versions on every rank's last inputs, and
+     timed alone on rank 1's; M4, the halo SOR at 128^3 against fst_sor; M5, an 800x600
      sharded frame of the 128^3 phi, bit for bit the tiled one; M6, a world
      of one NCCL rank, the FLIP halo step against the one-device step.
      Times are 4 ranks sharing one H100, not a speed across cards
@@ -320,6 +325,7 @@ def capture(store: dict):
         ("ops.project", "sor_pressure", "sor"),
         ("solver.step2d", "sor_pressure", "sor"),
         ("ops.flip", "g2p_flip", "g2p"),
+        ("ops.advect", "interp_mac3_vec", "interp"),
         ("ops.cuda_p2g_apic", "p2g_apic_sorted", "p2g_apic"),
         ("solver.apic", "p2g_apic", "p2g_apic_call"),
     ], record)
@@ -328,8 +334,10 @@ def capture(store: dict):
 def kernel_table():
     """One entry per line of the kernels report. ``site`` names the capture
     key whose arguments the entry's wrapper takes."""
+    from fluidsimulation_tpu_torch.core import interp
     from fluidsimulation_tpu_torch.ops import (
         cuda_g2p,
+        cuda_interp,
         cuda_p2g,
         cuda_p2g_apic,
         cuda_seed,
@@ -378,6 +386,13 @@ def kernel_table():
             site="sor", name="sor_pressure", source="fluidsimulation_tpu_torch/csrc/sor.cu",
             replaces="fluidsimulation_tpu/ops/pallas_sor.py:68",
         ),
+        # The RK3 stage gather; its plain version is the chain it replaced.
+        "interp": dict(
+            module=cuda_interp, wrapper=cuda_interp.interp_mac3_vec,
+            plain=interp.interp_mac3_vec, site="interp", name="interp_mac3_vec",
+            source="fluidsimulation_tpu_torch/csrc/interp.cu",
+            replaces="none: fluidsimulation_tpu/ops/advect.py's gather is XLA's",
+        ),
         # The launch alone, on the CSR-sorted inputs its caller made.
         "p2g_apic": dict(
             module=cuda_p2g_apic, wrapper=cuda_p2g_apic.p2g_apic_sorted, plain=p2g_apic_plain,
@@ -392,6 +407,7 @@ def per_step_launches() -> dict:
     from fluidsimulation_tpu_torch.core import cuda_pack
     from fluidsimulation_tpu_torch.ops import (
         cuda_g2p,
+        cuda_interp,
         cuda_p2g,
         cuda_p2g_apic,
         cuda_seed,
@@ -399,8 +415,9 @@ def per_step_launches() -> dict:
         cuda_sweep,
     )
 
+    # Every FLIP path here steps states that carry k1: RK3 stages 2 and 3.
     return {cuda_seed: 1, cuda_sweep: 1, cuda_p2g: 1, cuda_sor: 1, cuda_g2p: 1, cuda_pack: 0,
-            cuda_p2g_apic: 0}
+            cuda_p2g_apic: 0, cuda_interp: 2}
 
 
 class LaunchCheck:
@@ -465,6 +482,15 @@ def bound(key: str, args) -> tuple[float, str]:
         offsets read, and the three grids and their validity (5 B a face)
         written.
     """
+    if key == "interp":
+        # Positions read and velocities written, each face read once; 3
+        # trilinear gathers of 7 lerps (63) and 6 axis splits with clamps
+        # (33) a particle. Sizes from the arguments (u, v, w, pos_cells).
+        *grids, pc = args
+        n = pc.shape[0]
+        nbytes, ops = 24 * n + 4 * sum(g.numel() for g in grids), 96 * n
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+        return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
     cfg = args[0]
     # The grid from the arguments' level set, so that the 2D solve's
     # (nx, ny, 1) counts too.
@@ -549,12 +575,13 @@ def compare(key: str, got, want, args=None) -> tuple[float, str]:
         if not all(torch.equal(g, w) for g, w in pairs):
             raise AssertionError(f"{key}: not bit-exact (max abs err {err})")
         return err, "bit-exact"
-    if key in ("seed", "g2p"):
+    if key in ("seed", "g2p", "interp"):
         # -fmad=false, IEEE sqrt, the plain version's operation order; the
         # pass skips only candidates whose squared distance cannot win:
         # bit for bit.
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        pairs = list(zip(tensors(got), tensors(want)))
+        err = max(float((g - w).abs().max()) for g, w in pairs)
+        if not all(torch.equal(g, w) for g, w in pairs):
             raise AssertionError(f"{key}: not bit-exact (max abs err {err})")
         return err, "bit-exact"
     if key in ("p2g", "p2g2"):
@@ -637,7 +664,7 @@ def check_kernels(table, keys, captured, label: str, results: dict, timed=(),
         want = k["plain"](*args)
         torch.cuda.synchronize()
         err, note = compare(key, got, want, args)
-        if key in ("p2g", "p2g2", "seed", "g2p", "p2g_apic"):
+        if key in ("p2g", "p2g2", "seed", "g2p", "p2g_apic", "interp"):
             # No atomics, a fixed order: a second launch gives the same bits.
             again = k["wrapper"](*args)
             if not all(torch.equal(a, b) for a, b in zip(tensors(got), tensors(again))):
@@ -960,8 +987,8 @@ def run_demo(table, results, card):
                                                    card)
     launches = check.totals()
     check_host_syncs("phase 5 host syncs", ft.step, state, dt, cfg)
-    check_kernels(table, ("seed", "sweep", "p2g2", "sor", "g2p"), captured,
-                  f"{cfg.nx}^3 ppc 2", results, timed=("seed", "sweep", "p2g2", "sor", "g2p"),
+    keys = ("seed", "sweep", "p2g2", "sor", "g2p", "interp")
+    check_kernels(table, keys, captured, f"{cfg.nx}^3 ppc 2", results, timed=keys,
                   reported=("p2g2",))
     sweep_sor_details(captured, f"{cfg.nx}^3 ppc 2", card)
     combined_launches = run_combined(f"{cfg.nx}^3 ppc 2", cfg, state, dt, results,
@@ -994,19 +1021,27 @@ def run_physical(table, results, card):
     say(f"phase 6: all fields finite; median step {step_ms!r} ms over {len(times)} steps after "
         f"{N_WARMUP} warm-up (min {min(times)!r}, max {max(times)!r}); peak device memory "
         f"{peak} B ({peak / 2**30:.3f} GiB) on {card}")
-    check_kernels(table, ("seed", "sweep", "p2g2", "sor", "g2p"), captured,
-                  f"{PHYS_N}^3 ppc 2", results, timed=("seed", "sweep", "p2g2", "sor", "g2p"))
+    keys = ("seed", "sweep", "p2g2", "sor", "g2p", "interp")
+    check_kernels(table, keys, captured, f"{PHYS_N}^3 ppc 2", results, timed=keys,
+                  reported=("interp",))
     sweep_sor_details(captured, f"{PHYS_N}^3 ppc 2", card)
     return launches, step_ms, peak
 
 
 def apic_launches() -> dict:
     """Kernel module -> launches in one APIC step: the 27-neighbourhood
-    pass, the sweeps, the APIC P2G and the SOR once; the FLIP P2G, the FLIP
-    gather and the pack never (G2P is plain PyTorch)."""
-    from fluidsimulation_tpu_torch.ops import cuda_p2g_apic, cuda_seed, cuda_sor, cuda_sweep
+    pass, the sweeps, the APIC P2G and the SOR once, the RK3 gather twice
+    (stages 2 and 3); the FLIP P2G, the FLIP gather and the pack never (G2P
+    is plain PyTorch)."""
+    from fluidsimulation_tpu_torch.ops import (
+        cuda_interp,
+        cuda_p2g_apic,
+        cuda_seed,
+        cuda_sor,
+        cuda_sweep,
+    )
 
-    return {m: int(m in (cuda_seed, cuda_sweep, cuda_p2g_apic, cuda_sor))
+    return {m: 2 if m is cuda_interp else int(m in (cuda_seed, cuda_sweep, cuda_p2g_apic, cuda_sor))
             for m in per_step_launches()}
 
 
@@ -1951,7 +1986,7 @@ def big_phase(table, results, card) -> dict:
     import fluidsimulation_tpu_torch as ft
 
     out = {}
-    ppc1_keys = ("seed", "sweep", "p2g", "sor", "g2p")
+    ppc1_keys = ("seed", "sweep", "p2g", "sor", "g2p", "interp")
 
     t0 = time.perf_counter()
     label = f"phase B1 (FLIP {BIG_N}^3 ppc 1)"
@@ -2047,6 +2082,8 @@ def big_phase(table, results, card) -> dict:
     del state
     torch.cuda.empty_cache()
     kernels = {}
+    check_kernels(table, ("interp",), captured, f"{BIG_N}^3 ppc 2", kernels, timed=("interp",),
+                  reported=("interp",))
     plain_oom = None
     try:
         check_kernels(table, ("p2g2",), captured, f"{BIG_N}^3 ppc 2", kernels, timed=("p2g2",),
@@ -2071,11 +2108,13 @@ def multi_launches(family: str) -> dict:
     """Kernel symbol -> launches a rank makes in one multi-rank step: the
     pass, P2G and the FLIP gather on its slab (P2G and the gather not in
     APIC), the y/z sweeps in 8 calls, the 8 relayed x-sweeps, 2 x 100 SOR
-    half-updates; fst_sor and the pack never."""
+    half-updates, the RK3 gather once a gathered stage (3 in FLIP, which
+    advects without k1; 2 in APIC); fst_sor and the pack never."""
     flip = family == "flip"
     return {"fst_neighborhood_pass": 1, "fst_sweeps": 8, "fst_sweep_x_carry": 8,
             "fst_p2g": int(flip), "fst_sor": 0, "fst_sor_half": 200,
-            "fst_g2p_flip": int(flip), "fst_pack_mac3_combined": 0}
+            "fst_g2p_flip": int(flip), "fst_pack_mac3_combined": 0,
+            "fst_interp_mac3": 3 if flip else 2}
 
 
 def multi_held(label: str, got: dict, want, family: str, cfg) -> dict:
@@ -2323,7 +2362,7 @@ def main() -> int:
             say(f"phase 1: ptxas: {line.split('info    :')[-1].strip()}")
 
     table = kernel_table()
-    ppc1_keys = ("seed", "sweep", "p2g", "sor", "g2p")
+    ppc1_keys = ("seed", "sweep", "p2g", "sor", "g2p", "interp")
     results: dict = {}
 
     # Phase 2 at 32^3: a few CPU steps, then one step on the card, recording

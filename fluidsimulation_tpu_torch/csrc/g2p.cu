@@ -47,50 +47,6 @@ namespace {
 
 constexpr int kWarps = fst::kThreads / 32;
 
-struct Split {
-  int i;
-  float f;
-};
-
-// The NaN rule (core/interp.py): fmaxf maps a NaN coordinate to the lower
-// bound, which keeps the index in range; the fraction takes the NaN back, as
-// the plain version's clamp keeps it, so every lerp of the particle is NaN.
-// A finite coordinate is untouched.
-__device__ __forceinline__ float keep_nan(float coord, float frac) {
-  return isnan(coord) ? coord : frac;
-}
-
-// Clamp to [0, m-1]; floor, but at most m-2 (Simulation3D.h:61,70).
-__device__ __forceinline__ Split split_normal(float coord, int m) {
-  const float n = fminf(fmaxf(coord, 0.0f), static_cast<float>(m) - 1.0f);
-  const float i = fminf(floorf(n), static_cast<float>(m) - 2.0f);
-  return {static_cast<int>(i), keep_nan(coord, n - i)};
-}
-
-// Clamp coord+0.5 to [0, m]; floor, but at most m-1 (Simulation3D.h:65,73).
-__device__ __forceinline__ Split split_extended(float coord, int m) {
-  const float c = coord + 0.5f;
-  const float e = fminf(fmaxf(c, 0.0f), static_cast<float>(m));
-  const float i = fminf(floorf(e), static_cast<float>(m) - 1.0f);
-  return {static_cast<int>(i), keep_nan(c, e - i)};
-}
-
-__device__ __forceinline__ float lerp(float a, float b, float t) {
-  return a + (b - a) * t;
-}
-
-// Trilinear interpolation of 8 corner values c[(z * 2 + y) * 2 + x], in the
-// lerp order of core/interp.py::_trilerp.
-__device__ __forceinline__ float trilerp(const float (&c)[8], Split x, Split y, Split z) {
-  const float t00 = lerp(c[0], c[1], x.f);
-  const float t10 = lerp(c[2], c[3], x.f);
-  const float t01 = lerp(c[4], c[5], x.f);
-  const float t11 = lerp(c[6], c[7], x.f);
-  const float tx0 = lerp(t00, t10, y.f);
-  const float tx1 = lerp(t01, t11, y.f);
-  return lerp(tx0, tx1, z.f);
-}
-
 struct Pair {
   float diff;   // interp(g - beta * g_old)
   float value;  // interp(g)
@@ -100,7 +56,8 @@ struct Pair {
 // (., sy, sz).
 __device__ __forceinline__ Pair trilerp_pair(const float* __restrict__ g,
                                              const float* __restrict__ g_old, float beta,
-                                             int sy, int sz, Split x, Split y, Split z) {
+                                             int sy, int sz, fst::Split x, fst::Split y,
+                                             fst::Split z) {
   const long long dx = static_cast<long long>(sy) * sz;
   const long long base = (static_cast<long long>(x.i) * sy + y.i) * sz + z.i;
   float value[8], diff[8];
@@ -110,7 +67,7 @@ __device__ __forceinline__ Pair trilerp_pair(const float* __restrict__ g,
     value[k] = g[at];
     diff[k] = value[k] - beta * g_old[at];
   }
-  return {trilerp(diff, x, y, z), trilerp(value, x, y, z)};
+  return {fst::trilerp(diff, x, y, z), fst::trilerp(value, x, y, z)};
 }
 
 __global__ void __launch_bounds__(fst::kThreads)
@@ -131,10 +88,10 @@ __global__ void __launch_bounds__(fst::kThreads)
   const float pi = pcs[3 * sl + 0];
   const float pj = pcs[3 * sl + 1];
   const float pk = pcs[3 * sl + 2];
-  const Split I = split_normal(pi, nx), J = split_normal(pj, ny),
-              K = split_normal(pk, nz);
-  const Split EI = split_extended(pi, nx), EJ = split_extended(pj, ny),
-              EK = split_extended(pk, nz);
+  const fst::Split I = fst::split_normal(pi, nx), J = fst::split_normal(pj, ny),
+                   K = fst::split_normal(pk, nz);
+  const fst::Split EI = fst::split_extended(pi, nx), EJ = fst::split_extended(pj, ny),
+                   EK = fst::split_extended(pk, nz);
 
   // U is (nx+1, ny, nz), V is (nx, ny+1, nz), W is (nx, ny, nz+1).
   const Pair U = trilerp_pair(u, old_u, beta, ny, nz, EI, J, K);

@@ -6,8 +6,12 @@ Stage offsets 0.5*dt and 0.75*dt and weights (2/9, 3/9, 4/9)
 JAX package's jitted step.
 
 Each stage's grid gather, the interpolation of (u, v, w) at the particles,
-runs in a ``gather`` span of utils/trace.py (inside the step's ``advect``
-span): three a call without k1, two with it.
+is one call of ops/cuda_interp.py::interp_mac3_vec (on the card one launch
+of csrc/interp.cu, on the CPU core/interp.py's plain version) in a
+``gather`` span of utils/trace.py (inside the step's ``advect`` span):
+three a call without k1, two with it. ``_rk3`` looks the name up in this
+module at each call, so a hook set on ``ops.advect.interp_mac3_vec`` (the
+benchmark's site tables, chip_smoke.py's phase 7) takes every gather.
 """
 
 from __future__ import annotations
@@ -16,9 +20,9 @@ import numpy as np
 import torch
 
 from ..core.config import SimConfig
-from ..core.interp import interp_mac3_vec
 from ..utils.trace import span
 from .common import cell_scale
+from .cuda_interp import interp_mac3_vec
 
 
 def _rk3(cfg: SimConfig, u, v, w, k1, pos, dt):

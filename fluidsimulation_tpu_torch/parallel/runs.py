@@ -17,7 +17,7 @@ import torch
 from ..core import cuda_pack
 from ..core.config import SimConfig
 from ..core.state import init_state
-from ..ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep
+from ..ops import cuda_g2p, cuda_interp, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep
 from ..solver.apic import init_apic_state
 from ..utils.profiling import hooked
 from . import comm
@@ -34,7 +34,8 @@ from .sharding import (
 
 # Every kernel entry point, by its C symbol.
 KERNELS = (cuda_seed.KERNEL, cuda_sweep.KERNEL, cuda_sweep.CARRY_KERNEL, cuda_p2g.KERNEL,
-           cuda_sor.KERNEL, cuda_sor.HALF_KERNEL, cuda_g2p.KERNEL, cuda_pack.KERNEL)
+           cuda_sor.KERNEL, cuda_sor.HALF_KERNEL, cuda_g2p.KERNEL, cuda_pack.KERNEL,
+           cuda_interp.KERNEL)
 
 # (family, layout) -> (shard, make_step, unshard)
 PATHS = {

@@ -25,7 +25,8 @@ two launches must give the same bits. The renderer (plain PyTorch, no hand
 kernel) gives the CPU's 32^3 frame on the card. An APIC step (its P2G the
 kernel of tests/test_torch_apic_kernel.py, summing in another order than
 the CPU) stays within phase A's bound of the CPU's, and launches the pass,
-the sweeps, the APIC P2G and the SOR once each and no other kernel. The 2D
+the sweeps, the APIC P2G and the SOR once each, the RK3 gather twice
+(tests/test_torch_interp_kernel.py) and no other kernel. The 2D
 projection's SOR runs the same kernel on (nx, ny, 1) views
 with the 2D omega and 120 iterations, bit for bit the plain version; a 2D
 step (FLIP and APIC) on the card stays within the APIC bound of the CPU's
@@ -42,6 +43,7 @@ from fluidsimulation_tpu_torch.core.interp import interp_mac3_vec
 from fluidsimulation_tpu_torch.core.seeding import noise_grids
 from fluidsimulation_tpu_torch.ops import (
     cuda_g2p,
+    cuda_interp,
     cuda_p2g,
     cuda_p2g_apic,
     cuda_seed,
@@ -587,15 +589,17 @@ def test_apic_step_on_card_matches_cpu(dev):
 
 def test_apic_step_launches(dev):
     """One APIC step launches the 27-neighbourhood pass, the sweeps, the
-    APIC P2G and the SOR once each, and never the FLIP P2G, the FLIP gather
-    or the pack (its G2P is plain PyTorch)."""
+    APIC P2G and the SOR once each, the RK3 gather twice (stages 2 and 3),
+    and never the FLIP P2G, the FLIP gather or the pack (its G2P is plain
+    PyTorch)."""
     s = ft.init_apic_state(CFG, dev)
     s = ft.step_apic(s, 1.0 / 60.0, CFG)
-    modules = (cuda_seed, cuda_sweep, cuda_p2g_apic, cuda_sor, cuda_p2g, cuda_g2p, cuda_pack)
+    modules = (cuda_seed, cuda_sweep, cuda_p2g_apic, cuda_sor, cuda_interp, cuda_p2g, cuda_g2p,
+               cuda_pack)
     before = [m.KERNEL.launches for m in modules]
     ft.step_apic(s, 1.0 / 60.0, CFG)
     torch.cuda.synchronize()
-    assert [m.KERNEL.launches - b for m, b in zip(modules, before)] == [1, 1, 1, 1, 0, 0, 0]
+    assert [m.KERNEL.launches - b for m, b in zip(modules, before)] == [1, 1, 1, 1, 2, 0, 0, 0]
 
 
 @pytest.mark.parametrize("shape", [(13, 9), (64, 64), (512, 512)],
@@ -645,11 +649,11 @@ def test_2d_step_on_card_matches_cpu(dev, apic):
     for _ in range(2):
         s = step(s, 1.0 / 120.0, cfg)
     cpu = step(s, 1.0 / 120.0, cfg)
-    modules = (cuda_seed, cuda_sweep, cuda_sor, cuda_p2g, cuda_g2p, cuda_pack)
+    modules = (cuda_seed, cuda_sweep, cuda_sor, cuda_p2g, cuda_g2p, cuda_pack, cuda_interp)
     before = [m.KERNEL.launches for m in modules]
     card = step(s.to(dev), 1.0 / 120.0, cfg)
     torch.cuda.synchronize()
-    assert [m.KERNEL.launches - b for m, b in zip(modules, before)] == [0, 0, 1, 0, 0, 0]
+    assert [m.KERNEL.launches - b for m, b in zip(modules, before)] == [0, 0, 1, 0, 0, 0, 0]
     for name in ("pos", "vel", "C", "u", "v", "phi") if apic else ("pos", "vel", "u", "v", "phi"):
         atol = 2 * cfg.nx * 1e-4 if name == "C" else 1e-4
         torch.testing.assert_close(getattr(card, name).cpu(), getattr(cpu, name), rtol=0,

@@ -23,7 +23,7 @@ from fluidsimulation_tpu.ops.project import project as jax_project
 from fluidsimulation_tpu.solver.step3d import step_jit
 
 import fluidsimulation_tpu_torch as ft
-from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep
+from fluidsimulation_tpu_torch.ops import cuda_g2p, cuda_interp, cuda_p2g, cuda_seed, cuda_sor, cuda_sweep
 from fluidsimulation_tpu_torch.ops.binning import build_csr, sort_particles
 from fluidsimulation_tpu_torch.ops.flip import flip_update, flip_update_carry
 from fluidsimulation_tpu_torch.ops.project import project
@@ -34,7 +34,7 @@ KW = dict(nx=N, ny=N, nz=N, cells_per_meter=float(N))
 CFG, JCFG = ft.SimConfig(**KW), JaxConfig(**KW)
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "step16_r1.npz")
 FIELDS = ("pos", "vel", "u", "v", "w", "phi")
-KERNELS = (cuda_seed, cuda_sweep, cuda_p2g, cuda_sor, cuda_g2p)
+KERNELS = (cuda_seed, cuda_sweep, cuda_p2g, cuda_sor, cuda_g2p, cuda_interp)
 
 
 @pytest.fixture(autouse=True)
