@@ -20,10 +20,10 @@
 // Bound on the H100: each particle's 24 B, the CSR offsets and the six
 // accumulators moved once (25 us at 128^3 with one particle per cell, 9.1 us
 // at 64^3 and 75 us at 128^3 with two per cell axis, at 3.35 TB/s;
-// chip_smoke.py::bound). What holds the gather back is not bytes but the
-// walk: every particle is visited by the threads of the 27 cells around it,
-// each visit a chain of shared loads, hats, products and sums, and a warp
-// steps as often as its busiest lane. Particles pile up at the walls (the
+// bench_torch/harness/roofline.py). What holds the gather back is not bytes
+// but the walk: every particle is visited by the threads of the 27 cells
+// around it, each visit a chain of shared loads, hats, products and sums, and
+// a warp steps as often as its busiest lane. Particles pile up at the walls (the
 // advection clamp puts them on the boundary planes: 159 in one cell at 128^3
 // ppc 1 after 20 steps, 3,320 in the demo after 60), so lanes next to a pile
 // walk hundreds or thousands of particles while their neighbours idle

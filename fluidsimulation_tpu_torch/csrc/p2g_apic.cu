@@ -19,8 +19,8 @@
 //
 // Bound on the H100: each particle's 60 B (position, velocity, C), the CSR
 // offsets and the three grids with their validity moved once (0.16 ms at
-// 128^3 with two particles a cell axis, at 3.35 TB/s; chip_smoke.py::
-// bound). As in p2g.cu, what holds it back is the walk: every particle is
+// 128^3 with two particles a cell axis, at 3.35 TB/s; PERF.md, section
+// 6). As in p2g.cu, what holds it back is the walk: every particle is
 // visited by the threads of the 4 x 4 x 4 cells around it (less the column
 // and cells no face of theirs can reach), each visit up to six spline
 // nodes and three affine terms, and a warp steps as often as its busiest

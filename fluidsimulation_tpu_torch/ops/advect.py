@@ -11,7 +11,7 @@ of csrc/interp.cu, on the CPU core/interp.py's plain version) in a
 ``gather`` span of utils/trace.py (inside the step's ``advect`` span):
 three a call without k1, two with it. ``_rk3`` looks the name up in this
 module at each call, so a hook set on ``ops.advect.interp_mac3_vec`` (the
-benchmark's site tables, chip_smoke.py's phase 7) takes every gather.
+benchmark's site tables, tests/test_torch_stepped.py) takes every gather.
 """
 
 from __future__ import annotations

@@ -1,15 +1,15 @@
 """Rank-side runs of the five multi-rank paths, for ``Ranks.run`` /
-``run_ranks``: the module ``python -m fluidsimulation_tpu_torch.parallel``,
-chip_smoke.py's phase M and the tests call them. Each takes the rank's
-World first and returns picklable values (numpy arrays, numbers): the
-whole result on rank 0, and on every rank its per-step counts of
-collective calls (World.calls), of kernel launches and its step times.
+``run_ranks``: the module ``python -m fluidsimulation_tpu_torch.parallel``
+and tests/test_torch_parallel.py (on the CPU and, marked ``cuda``, on the
+card) call them. Each takes the rank's World first and returns picklable
+values (numpy arrays, numbers): the whole result on rank 0, and on every
+rank its per-step counts of collective calls (World.calls) and of kernel
+launches.
 """
 
 from __future__ import annotations
 
 import sys
-import time
 
 import numpy as np
 import torch
@@ -54,11 +54,6 @@ def _delta(after: dict, before: dict) -> dict:
     return {k: after[k] - before[k] for k in after}
 
 
-def _sync(world: comm.World) -> None:
-    if world.device.type == "cuda":
-        torch.cuda.synchronize(world.device)
-
-
 def whole_state(family: str, cfg: SimConfig, device):
     """The dam-break state every rank builds alike (no k1)."""
     if family == "apic":
@@ -71,8 +66,9 @@ def to_numpy(state) -> dict:
 
 
 def _entry_checks(store: dict) -> dict:
-    """The new entries against their plain versions on the last inputs
-    this rank gave them: max abs difference and whether bit for bit."""
+    """The two slab entries against their plain versions on the last
+    inputs this rank gave them: max abs difference and whether bit for
+    bit."""
     out = {}
     if "carry" in store:
         got = cuda_sweep.sweep_x_carry(*store["carry"])
@@ -88,20 +84,19 @@ def _entry_checks(store: dict) -> dict:
 
 
 def halo_run(world: comm.World, family: str, cfg: SimConfig, n_steps: int, dt: float,
-             layout: str = "x", capacity: int | None = None, check_entries: bool = False,
-             inputs_rank: int | None = None) -> dict:
+             layout: str = "x", capacity: int | None = None,
+             check_entries: bool = False) -> dict:
     """n_steps of the multi-rank step from the dam break. Returns, on every
-    rank, the particles dropped, the collective calls, the kernel launches
-    and the milliseconds of each step; on rank 0 the whole final state.
-    ``check_entries``: the last step's inputs to the two new kernel entries
-    are kept and each entry is held against its plain version on them (on
-    rank ``inputs_rank`` the inputs are also returned, as numpy)."""
+    rank, the particles dropped, the collective calls and the kernel
+    launches of each step; on rank 0 the whole final state.
+    ``check_entries``: the last step's inputs to the two slab entries are
+    kept and each entry is held against its plain version on them."""
     shard, make_step, unshard = PATHS[(family, layout)]
     for k in KERNELS:
         k.launches = 0
     local = shard(whole_state(family, cfg, world.device), world)
     step = make_step(cfg, world, capacity, with_diagnostics=True)
-    out = {"rank": world.rank, "dropped": [], "calls": [], "launches": [], "ms": []}
+    out = {"rank": world.rank, "dropped": [], "calls": [], "launches": []}
     store: dict = {}
 
     def keep(label, orig, args):
@@ -114,46 +109,33 @@ def halo_run(world: comm.World, family: str, cfg: SimConfig, n_steps: int, dt: f
         last = check_entries and i == n_steps - 1
         world.reset_calls()
         before = launches()
-        _sync(world)
-        t0 = time.perf_counter()
         if last:
             with hooked([("parallel.halo_step", "sweep_x_carry", "carry"),
                          ("parallel.halo", "sor_half", "half")], keep):
                 local, dropped = step(local, dt)
         else:
             local, dropped = step(local, dt)
-        _sync(world)
-        out["ms"].append(1e3 * (time.perf_counter() - t0))
         out["dropped"].append(dropped)
         out["calls"].append(dict(world.calls))
         out["launches"].append(_delta(launches(), before))
     if check_entries:
         out["entries"] = _entry_checks(store)
-        if world.rank == inputs_rank:
-            out["inputs"] = {k: [a.cpu().numpy() if isinstance(a, torch.Tensor) else a
-                                 for a in v] for k, v in store.items()}
     whole = unshard(local, world)
     if world.rank == 0:
         out["state"] = to_numpy(whole)
     return out
 
 
-def sor_run(world: comm.World, cfg: SimConfig, phi, diag, b, iterations: int | None = None,
-            repeats: int = 1) -> dict:
+def sor_run(world: comm.World, cfg: SimConfig, phi, diag, b,
+            iterations: int | None = None) -> dict:
     """The halo SOR on each rank's slab of the whole (nx, ny, nz) numpy
-    arrays phi, diag, b; rank 0 returns the whole p. ``repeats`` solves,
-    each timed."""
+    arrays phi, diag, b; rank 0 returns the whole p."""
     t = [torch.from_numpy(np.ascontiguousarray(x_slab(world, a, cfg.nx))).to(world.device)
          for a in (phi, diag, b)]
-    out = {"rank": world.rank, "ms": []}
-    for _ in range(repeats):
-        world.reset_calls()
-        before = launches()
-        _sync(world)
-        t0 = time.perf_counter()
-        p = sor_pressure_sharded(cfg, world, *t, iterations)
-        _sync(world)
-        out["ms"].append(1e3 * (time.perf_counter() - t0))
+    out = {"rank": world.rank}
+    world.reset_calls()
+    before = launches()
+    p = sor_pressure_sharded(cfg, world, *t, iterations)
     out["calls"] = dict(world.calls)
     out["launches"] = _delta(launches(), before)
     whole = comm.all_gather(world, p)
@@ -163,23 +145,16 @@ def sor_run(world: comm.World, cfg: SimConfig, phi, diag, b, iterations: int | N
 
 
 def render_run(world: comm.World, phi, camera, width: int, height: int, tile_h: int = 100,
-               tile_w: int = 100, bounces: int = 2, overstep: float = 0.0,
-               repeats: int = 1) -> dict:
+               tile_w: int = 100, bounces: int = 2, overstep: float = 0.0) -> dict:
     """One sharded frame of the whole numpy level set ``phi`` (camera: the
-    four vectors), ``repeats`` times, each timed; rank 0 returns the
-    image."""
+    four vectors); rank 0 returns the image."""
     from ..render.sharded import make_sharded_render
 
     frame = make_sharded_render(world, width, height, tile_h, tile_w, bounces, overstep)
     phi_t = torch.from_numpy(np.asarray(phi, dtype=np.float32)).to(world.device)
-    out = {"rank": world.rank, "ms": []}
-    for _ in range(repeats):
-        world.reset_calls()
-        _sync(world)
-        t0 = time.perf_counter()
-        img = frame(phi_t, *camera)
-        _sync(world)
-        out["ms"].append(1e3 * (time.perf_counter() - t0))
+    out = {"rank": world.rank}
+    world.reset_calls()
+    img = frame(phi_t, *camera)
     out["calls"] = dict(world.calls)
     if world.rank == 0:
         out["image"] = img.cpu().numpy()

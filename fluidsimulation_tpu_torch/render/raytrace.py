@@ -794,7 +794,7 @@ def render_frame(phi, cam_pos, cam_right, cam_up, cam_fwd, *, width: int, height
     """One frame from the raw level set: ``render`` with the JAX entry's
     defaults (``sphere_trace`` on; measured bit-identical to the plain
     march on every tested scene, tests/test_render.py). The demo and
-    chip_smoke.py call this."""
+    tests/test_torch_cuda.py's card frames call this."""
     return render(phi, cam_pos, cam_right, cam_up, cam_fwd, width, height,
                   band_rows=band_rows, band_cols=band_cols, bounces=bounces,
                   interior_skip=interior_skip, sphere_trace=sphere_trace,

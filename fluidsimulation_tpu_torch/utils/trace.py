@@ -20,7 +20,8 @@ the caller reads the Recording.
 ``recording(events=device)`` also brackets each span with a pair of CUDA
 events on the current stream (perf_counter stamps for a CPU device), which
 give its interval on the device's timeline once the card has caught up
-(``Span.ms``): the stages' times of utils/profiling.py.
+(``Span.ms``): the stages' times of the demo's --profile table
+(utils/profiling.py).
 """
 
 from __future__ import annotations

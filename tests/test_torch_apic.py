@@ -179,8 +179,8 @@ def test_step_apic_matches_jax(ppc, jax_runs):
 def test_five_steps_apic_match_jax_24():
     """Five steps at 24^3 ppc 1 from JAX's initial state: every field within
     STEP_ATOL of JAX's step_apic(fast=False), C within 2 m x STEP_ATOL, the
-    bound chip_smoke.py's phase A holds (C = 4 m^2 B grows with m; measured
-    3.6e-5)."""
+    bound tests/test_torch_cuda.py::_apic_close holds on the card (C = 4 m^2
+    B grows with m; measured 3.6e-5)."""
     cfg, jcfg = _configs(1, n=24)
     runs = _jax_steps(jcfg, 5)
     s = ft.apic_state_from_numpy(runs[0], "cpu")

@@ -7,7 +7,8 @@ where Pillow is missing, is JAX's bytes and decodes to the frame; its
 command check gives JAX's verdicts. The demo's 3D and 2D loops take
 scripted commands from a stub view: + and - change dt as JAX's loops do, r
 resets, q ends the run after the commands it came with, and every frame
-published is the frame written. One 3D run serves on a real socket."""
+published is the frame written. One 3D run serves on a real socket. The
+real socket and --profile are held on the card too (marked ``cuda``)."""
 
 import re
 import socket
@@ -40,6 +41,14 @@ urlopen = urllib.request.build_opener(urllib.request.ProxyHandler({})).open
 @pytest.fixture(autouse=True)
 def one_thread():
     torch.set_num_threads(1)
+
+
+@pytest.fixture(params=["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def device(request):
+    """The demo's --device: cpu, and the card (marked cuda)."""
+    if request.param == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return request.param
 
 
 def decode_png(data: bytes) -> np.ndarray:
@@ -308,7 +317,7 @@ def test_2d_loop_takes_scripted_commands(monkeypatch, tmp_path, apic):
     check_published(view, tmp_path, [f"frame2d_{i:05d}.ppm" for i in range(4)])
 
 
-def test_serve_on_a_real_socket(monkeypatch, tmp_path):
+def test_serve_on_a_real_socket(monkeypatch, tmp_path, device):
     """--serve on a free port, 16^3, a frame a step: at step 1 a client
     reads the page and one /stream part (a PNG, Pillow hidden: the first
     frame's PPM pixels) and posts 'o 10 -5' and '+'; at step 2 it posts
@@ -335,7 +344,7 @@ def test_serve_on_a_real_socket(monkeypatch, tmp_path):
         return orig(*args)
 
     with hooked([("app.demo", "step", "step")], client):
-        assert demo.main(["--device", "cpu", "--grid", str(N), "--steps", "20", "--render-every",
+        assert demo.main(["--device", device, "--grid", str(N), "--steps", "20", "--render-every",
                           "1", "--width", "32", "--height", "24", "--serve", str(port),
                           "--out", str(tmp_path)]) == 0
     cfg = ft.SimConfig(nx=N, ny=N, nz=N, cells_per_meter=float(N))
@@ -352,10 +361,10 @@ def test_serve_on_a_real_socket(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("transfer", ["flip", "apic"])
-def test_profile_prints_one_table_a_step(tmp_path, capsys, transfer):
+def test_profile_prints_one_table_a_step(tmp_path, capsys, transfer, device):
     """--profile: a table of the 23 marks and a step line each step, DRAW
     nonzero on the rendering steps only; in --two-d it prints none."""
-    assert demo.main(["--profile", "--device", "cpu", "--grid", str(N), "--steps", "3",
+    assert demo.main(["--profile", "--device", device, "--grid", str(N), "--steps", "3",
                       "--render-every", "2", "--width", "16", "--height", "12", "--transfer",
                       transfer, "--out", str(tmp_path)]) == 0
     lines = capsys.readouterr().out.splitlines()
@@ -368,6 +377,6 @@ def test_profile_prints_one_table_a_step(tmp_path, capsys, transfer):
         ms = dict(zip(MARKS, (float(v.removesuffix("ms")) for v in vals[1:])))
         assert (ms["DRAW"] > 0) is (step % 2 == 0)
         assert lines[i + 2].startswith(f"step {step}: ")
-    assert demo.main(["--two-d", "--profile", "--device", "cpu", "--grid", str(N), "--steps",
+    assert demo.main(["--two-d", "--profile", "--device", device, "--grid", str(N), "--steps",
                       "2", "--out", str(tmp_path)]) == 0
     assert "GPU time:" not in capsys.readouterr().out

@@ -90,12 +90,8 @@ def test_state_from_numpy_round_trip_bit_exact():
     [
         "import sys, fluidsimulation_tpu_torch.solver.step3d; "
         "assert 'jax' not in sys.modules, 'port imported jax'",
-        "import sys, runpy; runpy.run_path('chip_smoke.py', run_name='not_main'); "
-        "assert 'jax' not in sys.modules, 'chip_smoke imported jax'",
         "import sys, fluidsimulation_tpu_torch.app.demo, fluidsimulation_tpu_torch.utils.checkpoint; "
         "assert 'jax' not in sys.modules, 'demo imported jax'",
-        "import sys, fluidsimulation_tpu_torch.utils.kernel_times; "
-        "assert 'jax' not in sys.modules, 'kernel_times imported jax'",
         "import sys, fluidsimulation_tpu_torch.render.raytrace, "
         "fluidsimulation_tpu_torch.render.interior, fluidsimulation_tpu_torch.render.camera; "
         "assert 'jax' not in sys.modules, 'render imported jax'; "
@@ -111,8 +107,14 @@ def test_state_from_numpy_round_trip_bit_exact():
         "assert 'jax' not in sys.modules, '2d imported jax'; "
         "assert not any(m.split('.')[0] == 'fluidsimulation_tpu' for m in sys.modules), "
         "'2d imported the JAX package'",
+        "import sys, fluidsimulation_tpu_torch.parallel.halo_step, "
+        "fluidsimulation_tpu_torch.parallel.halo_apic, "
+        "fluidsimulation_tpu_torch.parallel.comm, fluidsimulation_tpu_torch.render.sharded; "
+        "assert 'jax' not in sys.modules, 'parallel imported jax'; "
+        "assert not any(m.split('.')[0] == 'fluidsimulation_tpu' for m in sys.modules), "
+        "'parallel imported the JAX package'",
     ],
-    ids=["package", "chip_smoke", "demo", "kernel_times", "render", "apic", "2d"],
+    ids=["package", "demo", "render", "apic", "2d", "parallel"],
 )
 def test_port_imports_no_jax(code):
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
@@ -121,17 +123,8 @@ def test_port_imports_no_jax(code):
 
 @pytest.mark.parametrize("ppc,particles", [(1, 8_193_532), (2, 65_548_256)])
 def test_particle_counts_at_256(ppc, particles):
-    """The 256^3 dam break chip_smoke.py phase B steps: 127 x 254 x 254
-    cells of ppc^3 particles, as the JAX config counts them."""
+    """The 256^3 dam break (ppc 2: the benchmark's grid256 configuration,
+    bench_torch/configs/grid256.json): 127 x 254 x 254 cells of ppc^3
+    particles, as the JAX config counts them."""
     kw = dict(nx=256, ny=256, nz=256, cells_per_meter=256.0, particles_per_cell_axis=ppc)
     assert ft.SimConfig(**kw).num_particles == JaxConfig(**kw).num_particles == particles
-
-
-def test_chip_smoke_refuses_without_card():
-    """chip_smoke.py exits non-zero and prints no result without CUDA."""
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA card is present; chip_smoke.py would run in full")
-    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
-                          capture_output=True, text=True)
-    assert proc.returncode != 0
-    assert '"ok"' not in proc.stdout

@@ -567,9 +567,10 @@ def test_render_on_card_matches_cpu(dev, kw):
 
 
 def _apic_close(card, cpu, cfg):
-    """The APIC bound of chip_smoke.py phase A: 1e-4 abs, and for C that
-    bound carried through G2P's lever (2 m x 1e-4): P2G sums each face in
-    another order on the card than on the CPU."""
+    """The APIC card-vs-CPU bound (tests/test_torch_parallel.py holds the
+    card's multi-rank APIC step to it too): 1e-4 abs, and for C that bound
+    carried through G2P's lever (2 m x 1e-4): P2G sums each face in another
+    order on the card than on the CPU."""
     for name in ("pos", "vel", "C", "u", "v", "w", "phi"):
         atol = 2 * cfg.nx * 1e-4 if name == "C" else 1e-4
         torch.testing.assert_close(getattr(card, name).cpu(), getattr(cpu, name), rtol=0,

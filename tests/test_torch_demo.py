@@ -6,7 +6,9 @@ give the JAX answers on the same states. With --render-every it writes the
 frames JAX's write_ppm writes of the same arrays, and the camera commands
 move the camera as JAX's OrbitCamera moves. Its 2D loop (--two-d) runs at
 16^2 and writes the bytes JAX's write_ppm writes of JAX's splat of the same
-state; the debug renderers (render/debug.py) give JAX's images."""
+state; the debug renderers (render/debug.py) give JAX's images. The saved
+states (FLIP and APIC) and the 2D frames are held on the card too (marked
+``cuda``), against the same steps on the card."""
 
 import contextlib
 import logging
@@ -51,47 +53,56 @@ def one_thread():
     torch.set_num_threads(1)
 
 
-def test_demo_runs_and_saves_what_it_stepped(tmp_path, capsys):
+@pytest.fixture(params=["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def device(request):
+    """The demo's --device: cpu, and the card (marked cuda)."""
+    if request.param == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return request.param
+
+
+def test_demo_runs_and_saves_what_it_stepped(tmp_path, capsys, device):
     """Three demo steps at 16^3 (ppc 2, rate 0.5) save the state that three
-    calls of ``step`` at the clamped dt give, and JAX's load_state reads it
-    with its config check."""
+    calls of ``step`` at the clamped dt give on the same device, and JAX's
+    load_state reads it with its config check."""
     out = tmp_path / "out"
-    assert main(["--grid", str(N), "--steps", "3", "--device", "cpu", "--save-state",
+    assert main(["--grid", str(N), "--steps", "3", "--device", device, "--save-state",
                  "--out", str(out)]) == 0
     text = capsys.readouterr().out
-    assert f"grid {N}^3, {CFG.num_particles} particles on cpu" in text
+    assert f"grid {N}^3, {CFG.num_particles} particles on {device}" in text
     assert "step 0:" in text and "3 steps in" in text
 
     path = str(out / "final_state.npz")
-    s = ft.init_state(CFG, "cpu")
+    s = ft.init_state(CFG, device)
     for _ in range(3):
         s = ft.step(s, clamp_dt(CFG, 1.0 / 60.0, 0.5), CFG)
     loaded = jax_cp.load_state(path, JCFG)
     for name in FIELDS:
         np.testing.assert_array_equal(np.asarray(getattr(loaded, name)),
-                                      getattr(s, name).numpy(), err_msg=name)
+                                      getattr(s, name).cpu().numpy(), err_msg=name)
     with pytest.raises(ValueError, match="cfg"):
         jax_cp.load_state(path, JaxConfig(nx=8, ny=8, nz=8, cells_per_meter=8.0))
 
 
-def test_demo_apic_runs_and_saves_what_it_stepped(tmp_path, capsys):
+def test_demo_apic_runs_and_saves_what_it_stepped(tmp_path, capsys, device):
     """--transfer apic, two steps at 12^3 (ppc 2, rate 0.5): the saved APIC
-    checkpoint is what two calls of ``step_apic`` at the clamped dt give,
-    and JAX's load_apic_state reads it with its config check."""
+    checkpoint is what two calls of ``step_apic`` at the clamped dt give on
+    the same device, and JAX's load_apic_state reads it with its config
+    check."""
     n = 12
     cfg = ft.SimConfig(nx=n, ny=n, nz=n, cells_per_meter=float(n))
     out = tmp_path / "out"
-    assert main(["--grid", str(n), "--transfer", "apic", "--device", "cpu", "--steps", "2",
+    assert main(["--grid", str(n), "--transfer", "apic", "--device", device, "--steps", "2",
                  "--save-state", "--out", str(out)]) == 0
     assert "2 steps in" in capsys.readouterr().out
-    s = ft.init_apic_state(cfg, "cpu")
+    s = ft.init_apic_state(cfg, device)
     for _ in range(2):
         s = ft.step_apic(s, clamp_dt(cfg, 1.0 / 60.0, 0.5), cfg)
     path = str(out / "final_state.npz")
     loaded = jax_cp.load_apic_state(path, JaxConfig(nx=n, ny=n, nz=n, cells_per_meter=float(n)))
     for name in ("pos", "vel", "C", "u", "v", "w", "phi"):
         np.testing.assert_array_equal(np.asarray(getattr(loaded, name)),
-                                      getattr(s, name).numpy(), err_msg=name)
+                                      getattr(s, name).cpu().numpy(), err_msg=name)
     with pytest.raises(ValueError, match="cfg"):
         jax_cp.load_apic_state(path, JCFG)
 
@@ -173,26 +184,26 @@ def test_flags_of_unported_slices_are_refused(flag):
 
 
 @pytest.mark.parametrize("transfer", ["flip", "apic"])
-def test_demo_2d_writes_splat_frames(tmp_path, capsys, transfer):
+def test_demo_2d_writes_splat_frames(tmp_path, capsys, transfer, device):
     """--two-d at 16^2 for 3 steps with --render-every 1 writes
     frame2d_00000.ppm-frame2d_00002.ppm; the first is the bytes JAX's
     write_ppm writes of JAX's splat_particles_2d of the state one step of
-    the port's (step2d or step_apic2d, dt = clip(dt x rate, 0, max_dt))
-    gives."""
+    the port's (step2d or step_apic2d, dt = clip(dt x rate, 0, max_dt)) on
+    the same device gives."""
     out = tmp_path / "out"
-    assert main(["--two-d", "--transfer", transfer, "--device", "cpu", "--grid", "16",
+    assert main(["--two-d", "--transfer", transfer, "--device", device, "--grid", "16",
                  "--steps", "3", "--render-every", "1", "--width", "40", "--height", "30",
                  "--out", str(out)]) == 0
     cfg = ft.SimConfig2D(nx=16, ny=16, cells_per_meter=16.0)
     text = capsys.readouterr().out
-    assert f"2D grid 16x16, {cfg.num_particles} particles on cpu" in text
+    assert f"2D grid 16x16, {cfg.num_particles} particles on {device}" in text
     assert "step 0:" in text and "3 steps in" in text
     assert sorted(p.name for p in out.iterdir()) == [f"frame2d_{i:05d}.ppm" for i in range(3)]
     init, step = ((ft.init_apic_state2d, ft.step_apic2d) if transfer == "apic"
                   else (ft.init_state2d, ft.step2d))
-    s = step(init(cfg, "cpu"), float(np.clip(1.0 / 60.0 * 0.5, 0.0, cfg.max_dt)), cfg)
-    jax_write_ppm(str(tmp_path / "jax.ppm"),
-                  np.asarray(jax_debug.splat_particles_2d(jnp.asarray(s.pos.numpy()), 40, 30)))
+    s = step(init(cfg, device), float(np.clip(1.0 / 60.0 * 0.5, 0.0, cfg.max_dt)), cfg)
+    splat = jax_debug.splat_particles_2d(jnp.asarray(s.pos.cpu().numpy()), 40, 30)
+    jax_write_ppm(str(tmp_path / "jax.ppm"), np.asarray(splat))
     assert (out / "frame2d_00000.ppm").read_bytes() == (tmp_path / "jax.ppm").read_bytes()
 
 

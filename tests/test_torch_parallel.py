@@ -4,7 +4,11 @@ one-device steps and the JAX package.
 
 The ranks are processes spawned by parallel/comm.py's Ranks; they import
 the port and never JAX (checked). What they run lives in
-parallel/runs.py. Bounds are the JAX package's own for the same
+parallel/runs.py. Marked ``cuda``, a second world of 4 gloo ranks shares
+the card (NCCL takes one rank a card) and runs the FLIP and APIC halo steps
+at 128^3 and the halo SOR against the one-device steps and solve on the
+card, each rank's slab on the hand kernels; a world of one NCCL rank runs
+the FLIP halo step. Bounds are the JAX package's own for the same
 comparisons (tests/test_parallel.py): the FLIP steps pos 1e-6 and the rest
 1e-4 after 2 steps, the APIC steps pos 1e-6, vel and grids 1e-5, C 1e-4,
 the halo SOR 1e-5. Held to the port's own one-device steps they are
@@ -29,6 +33,7 @@ from fluidsimulation_tpu.parallel.sharding import make_mesh as jax_make_mesh
 from fluidsimulation_tpu.solver.step3d import step_jit
 
 import fluidsimulation_tpu_torch as ft
+from fluidsimulation_tpu_torch import _build
 from fluidsimulation_tpu_torch.ops.cuda_sor import sor_pressure
 from fluidsimulation_tpu_torch.ops.project import compute_diag, compute_rhs
 from fluidsimulation_tpu_torch.parallel import comm, runs
@@ -41,6 +46,8 @@ STEPS = 2
 FLIP_BOUNDS = {"pos": 1e-6}  # the rest 1e-4
 APIC_BOUNDS = {"pos": 1e-6, "C": 1e-4}  # the rest 1e-5
 SIZES = {16: 10_976, 24: 42_592}
+CARD_N = 128  # the card's halo steps: 1,000,188 particles, 250,047 a rank
+DEVICES = ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)]
 
 
 def _cfgs(n):
@@ -62,24 +69,55 @@ def ranks():
 
 
 @pytest.fixture(scope="module")
+def card_ranks():
+    """4 gloo ranks sharing the one card, for the module's card cases; the
+    kernels are built once before the ranks start."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _build.build()
+    with comm.Ranks(D, "gloo", "cuda", timeout=120.0) as world:
+        yield world
+
+
+def _world(request, device):
+    return request.getfixturevalue("card_ranks" if device == "cuda" else "ranks")
+
+
+def _launches(device, family):
+    """Each rank's kernel launches a step: none on the CPU; on the card the
+    pass, P2G and the FLIP gather once (P2G and the gather not in APIC),
+    the y/z sweeps in 8 calls, the 8 relayed x-sweeps, 2 x 100 SOR
+    half-updates and the RK3 gather once a gathered stage (3 in FLIP, which
+    advects without k1; 2 in APIC); the whole-grid SOR and the pack never."""
+    if device == "cpu":
+        return dict.fromkeys(runs.launches(), 0)
+    flip = family == "flip"
+    return {"fst_neighborhood_pass": 1, "fst_sweeps": 8, "fst_sweep_x_carry": 8,
+            "fst_p2g": int(flip), "fst_sor": 0, "fst_sor_half": 200,
+            "fst_g2p_flip": int(flip), "fst_pack_mac3_combined": 0,
+            "fst_interp_mac3": 3 if flip else 2}
+
+
+@pytest.fixture(scope="module")
 def flip_runs(ranks):
     """The FLIP halo step, 2 steps, at 16^3 and 24^3."""
     return {n: ranks.run(runs.halo_run, "flip", _cfgs(n)[0], STEPS, DT, deadline=300.0)
             for n in SIZES}
 
 
-def _port_steps(family, cfg, n_steps):
-    state = runs.whole_state(family, cfg, "cpu")
+def _port_steps(family, cfg, n_steps, device="cpu", dt=DT):
+    state = runs.whole_state(family, cfg, device)
     fn = ft.step_apic if family == "apic" else ft.step
     for _ in range(n_steps):
-        state = fn(state, DT, cfg)
+        state = fn(state, dt, cfg)
     return state
 
 
 def _held(got: dict, want, bounds: dict, rest: float) -> dict:
     diffs = {}
     for name, arr in got.items():
-        ref = np.asarray(getattr(want, name))
+        ref = getattr(want, name)
+        ref = ref.cpu().numpy() if isinstance(ref, torch.Tensor) else np.asarray(ref)
         diffs[name] = float(np.abs(arr - ref).max())
         assert diffs[name] <= bounds.get(name, rest), (name, diffs[name])
     return diffs
@@ -103,16 +141,22 @@ def test_flip_halo_step_matches_port_and_jax(flip_runs, n):
     assert all(r["dropped"] == [0] * STEPS for r in res)
 
 
-def test_flip_halo_step_at_demo_dt_is_exact(ranks):
+@pytest.mark.parametrize("device", DEVICES)
+def test_flip_halo_step_at_demo_dt_is_exact(request, device):
     """Three steps at 1/60 s, where rounding differences grow fastest (the
     JAX package's shifted slab frames leave 1.7e-4 in u at 64^3 here): the
-    one-device steps bit for bit."""
-    cfg = _cfgs(16)[0]
-    got = ranks.run(runs.halo_run, "flip", cfg, 3, 1.0 / 60.0)[0]["state"]
-    state = runs.whole_state("flip", cfg, "cpu")
-    for _ in range(3):
-        state = ft.step(state, 1.0 / 60.0, cfg)
-    _held(got, state, {}, 0.0)
+    one-device steps bit for bit, at 16^3 on the CPU and 128^3 on the card.
+    Each rank launches each kernel as _launches says, every step, and the
+    two slab entries give their plain versions' bits on the last step's
+    inputs."""
+    cfg = _cfgs(CARD_N if device == "cuda" else 16)[0]
+    res = _world(request, device).run(runs.halo_run, "flip", cfg, 3, 1.0 / 60.0,
+                                      check_entries=True, deadline=300.0)
+    _held(res[0]["state"], _port_steps("flip", cfg, 3, device, 1.0 / 60.0), {}, 0.0)
+    for r in res:
+        assert r["dropped"] == [0] * 3
+        assert r["launches"] == [_launches(device, "flip")] * 3
+        assert all(exact for _, exact in r["entries"].values()) and len(r["entries"]) == 2
 
 
 def test_flip_collective_and_launch_counts(flip_runs):
@@ -159,20 +203,29 @@ def test_gspmd_layout_step_matches_port(ranks):
         assert calls["reshard"] == 2 and calls["all_gather"] == 8 + 2 * 4
 
 
+@pytest.mark.parametrize("device", DEVICES)
 @pytest.mark.parametrize("layout", ["x", "gspmd"])
-def test_apic_halo_step_matches_step_apic(ranks, layout):
+def test_apic_halo_step_matches_step_apic(request, layout, device):
     """make_halo_apic_step and make_sharded_apic_step, 2 steps at 16^3:
     step_apic bit for bit (the JAX package's bounds: pos 1e-6, vel and
     grids 1e-5, C 1e-4); 9 all-gathers a halo step (C gathered with the
-    particles)."""
-    cfg = _cfgs(16)[0]
-    res = ranks.run(runs.halo_run, "apic", cfg, STEPS, DT, layout)
+    particles). On the card, at 128^3: each rank's P2G is the plain form
+    (index_add_, whose atomics sum in no fixed order) where the one-device
+    step runs the APIC P2G kernel, so the state is held to the card-vs-CPU
+    bound of tests/test_torch_cuda.py (1e-4, C 2 m x 1e-4)."""
+    cfg = _cfgs(CARD_N if device == "cuda" else 16)[0]
+    res = _world(request, device).run(runs.halo_run, "apic", cfg, STEPS, DT, layout,
+                                      deadline=300.0)
     got = res[0]["state"]
     assert sorted(got) == ["C", "phi", "pos", "u", "v", "vel", "w"]
-    want = _port_steps("apic", cfg, STEPS)
-    _held(got, want, APIC_BOUNDS, 1e-5)
-    _held(got, want, {}, 0.0)
+    want = _port_steps("apic", cfg, STEPS, device)
+    if device == "cuda":
+        _held(got, want, {"C": 2 * cfg.nx * 1e-4}, 1e-4)
+    else:
+        _held(got, want, APIC_BOUNDS, 1e-5)
+        _held(got, want, {}, 0.0)
     assert all(r["dropped"] == [0] * STEPS for r in res)
+    assert all(r["launches"] == [_launches(device, "apic")] * STEPS for r in res)
     gathers = 9 + (8 if layout == "gspmd" else 0)
     assert all(c["all_gather"] == gathers for r in res for c in r["calls"])
 
@@ -222,14 +275,18 @@ def test_halo_sor_matches_jax_sharded(ranks):
     assert all(r["calls"] == {"exchange_x": 1 + 2 * cfg.sor_iterations} for r in res)
 
 
-def test_halo_sor_on_port_inputs_is_one_device_solve(ranks):
-    """At 24^3 on the port's own step's level set and RHS: bit for bit."""
+@pytest.mark.parametrize("device", DEVICES)
+def test_halo_sor_on_port_inputs_is_one_device_solve(request, device):
+    """At 24^3 on the port's own step's level set and RHS: bit for bit (on
+    the card 2 x 100 launches of fst_sor_half a rank against one of
+    fst_sor)."""
+    world = _world(request, device)
     cfg = _cfgs(24)[0]
-    s = ft.step(ft.init_state(cfg, "cpu"), DT, cfg)
+    s = ft.step(ft.init_state(cfg, device), DT, cfg)
     diag = compute_diag(cfg, s.phi)
     b = compute_rhs(cfg, s.u, s.v, s.w, DT)
-    res = ranks.run(runs.sor_run, cfg, s.phi.numpy(), diag.numpy(), b.numpy())
-    np.testing.assert_array_equal(res[0]["p"], sor_pressure(cfg, s.phi, diag, b).numpy())
+    res = world.run(runs.sor_run, cfg, *(t.cpu().numpy() for t in (s.phi, diag, b)))
+    np.testing.assert_array_equal(res[0]["p"], sor_pressure(cfg, s.phi, diag, b).cpu().numpy())
 
 
 @pytest.mark.parametrize("n", sorted(SIZES))
@@ -270,6 +327,18 @@ def test_backend_and_device_rules(monkeypatch):
     assert comm.rank_device("gloo", "cuda", 3, 4) == torch.device("cuda", 0)
     assert comm.rank_device("nccl", "cuda", 0, 1) == torch.device("cuda", 0)
     assert comm.rank_device("gloo", "cpu", 2, 4) == torch.device("cpu")
+
+
+@pytest.mark.cuda
+def test_one_nccl_rank_is_the_one_device_step():
+    """A world of one NCCL rank on the card: the FLIP halo step, 2 steps at
+    128^3, bit for bit the one-device step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = _cfgs(CARD_N)[0]
+    res = comm.run_ranks(runs.halo_run, 1, "nccl", "cuda", "flip", cfg, STEPS, DT,
+                         timeout=120.0, deadline=300.0)
+    _held(res[0]["state"], _port_steps("flip", cfg, STEPS, "cuda"), {}, 0.0)
 
 
 def test_a_failing_rank_fails_the_call():

@@ -1,9 +1,7 @@
-"""The per-stage step timer (utils/profiling.py) on the CPU: it times every
-stage span of the step (utils/trace.py), leaves the step's result
-unchanged and leaves the step's functions as they were; its ``hooked``
-wraps any function and restores it. The reference's mark table (MARKS,
-SHORT, StageProfiler, profile_step, profile_step_apic) against the JAX
-package's."""
+"""The demo's --profile table (utils/profiling.py) on the CPU: the
+reference's mark table (MARKS, SHORT, StageProfiler, profile_step,
+profile_step_apic) against the JAX package's, the profiled step bit for bit
+the step; its ``hooked`` wraps any function and restores it."""
 
 import numpy as np
 import pytest
@@ -12,80 +10,18 @@ import torch
 from fluidsimulation_tpu.utils import profiling as jax_profiling
 
 import fluidsimulation_tpu_torch as ft
-from fluidsimulation_tpu_torch.ops import levelset, project
-from fluidsimulation_tpu_torch.solver import step3d
 from fluidsimulation_tpu_torch.utils import profiling
 
 N = 12
 CFG = ft.SimConfig(nx=N, ny=N, nz=N, cells_per_meter=float(N))
-# The stage spans of a step, in the order it runs them: both 3D families,
-# and both 2D ones (no CSR index, 27-neighbourhood pass or blur).
+# The stage spans of a 3D step, in the order it runs them.
 STAGES = ["advect", "csr", "sort", "seed", "pass", "sweeps", "p2g", "extrapolate", "gravity",
           "rhs", "diag", "sor", "apply", "particle_update", "blur"]
-STAGES_2D = ["advect", "seed", "sweeps", "p2g", "extrapolate", "gravity", "rhs", "diag", "sor",
-             "apply", "particle_update"]
 
 
 @pytest.fixture(autouse=True)
 def one_thread():
     torch.set_num_threads(1)
-
-
-def test_stage_times_marks_every_stage_and_keeps_the_step():
-    before = [getattr(m, a) for m, a in ((step3d, "build_csr"), (levelset, "sweep_closest"),
-                                         (project, "sor_pressure"))]
-    s0 = ft.init_state(CFG, "cpu")
-    timed, rows, totals = profiling.stage_times(s0, 0.01, CFG, 2)
-    plain = ft.simulate(s0, 0.01, CFG, 2)
-    for name in ("pos", "vel", "u", "v", "w", "phi", "k1"):
-        torch.testing.assert_close(getattr(timed, name), getattr(plain, name), rtol=0, atol=0)
-    assert len(rows) == len(totals) == 2
-    for row, total in zip(rows, totals):
-        assert list(row) == STAGES
-        assert all(row[s] > 0 for s in STAGES)
-        assert sum(row.values()) <= total
-    after = [getattr(m, a) for m, a in ((step3d, "build_csr"), (levelset, "sweep_closest"),
-                                        (project, "sor_pressure"))]
-    assert after == before
-
-
-def test_stage_times_marks_every_apic_stage_and_keeps_the_step():
-    """An ApicState is stepped by step_apic, its stages timed (its P2G and
-    G2P under p2g and particle_update)."""
-    from fluidsimulation_tpu_torch.solver import apic
-
-    before = (apic.p2g_apic, apic.g2p_apic, apic.advect_rk3_pic)
-    s0 = ft.init_apic_state(CFG, "cpu")
-    timed, rows, totals = profiling.stage_times(s0, 0.01, CFG, 2)
-    plain = ft.simulate_apic(s0, 0.01, CFG, 2)
-    for name in ("pos", "vel", "C", "u", "v", "w", "phi"):
-        torch.testing.assert_close(getattr(timed, name), getattr(plain, name), rtol=0, atol=0)
-    for row, total in zip(rows, totals):
-        assert list(row) == STAGES
-        assert all(row[s] > 0 for s in STAGES)
-        assert sum(row.values()) <= total
-    assert (apic.p2g_apic, apic.g2p_apic, apic.advect_rk3_pic) == before
-
-
-@pytest.mark.parametrize("apic", [False, True], ids=["flip", "apic"])
-def test_stage_times_marks_every_2d_stage_and_keeps_the_step(apic):
-    """A SimState2D is stepped by step2d, an ApicState2D by step_apic2d,
-    each with its own stages timed (the 8 sweeps in one span)."""
-    from fluidsimulation_tpu_torch.solver import apic2d, step2d
-
-    before = (step2d._sweep_axis2, step2d.sor_pressure, apic2d.p2g_apic2d)
-    cfg = ft.SimConfig2D(nx=N, ny=N, cells_per_meter=float(N))
-    init, step = (ft.init_apic_state2d, ft.step_apic2d) if apic else (ft.init_state2d, ft.step2d)
-    s0 = init(cfg, "cpu")
-    timed, rows, totals = profiling.stage_times(s0, 0.01, cfg, 2)
-    plain = step(step(s0, 0.01, cfg), 0.01, cfg)
-    for name in ("pos", "vel", "u", "v", "phi", *(("C",) if apic else ())):
-        torch.testing.assert_close(getattr(timed, name), getattr(plain, name), rtol=0, atol=0)
-    for row, total in zip(rows, totals):
-        assert list(row) == STAGES_2D
-        assert all(row[s] > 0 for s in STAGES_2D)
-        assert sum(row.values()) <= total
-    assert (step2d._sweep_axis2, step2d.sor_pressure, apic2d.p2g_apic2d) == before
 
 
 def test_hooked_sees_every_demo_step_and_restores(tmp_path):
@@ -104,13 +40,6 @@ def test_hooked_sees_every_demo_step_and_restores(tmp_path):
     assert rc == 0
     assert calls == ["step", "check", "step", "step"]
     assert (demo.step, demo.check_state) == before
-
-
-def test_profiling_main_refuses_without_card():
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA card is present; main would run in full")
-    with pytest.raises(SystemExit, match="CUDA card"):
-        profiling.main()
 
 
 N16 = 16
