@@ -1,11 +1,18 @@
 """P2G accumulators: the CUDA gather over the CSR index (csrc/p2g.cu, cell
-tiles with their particles staged through shared memory) and its plain
-PyTorch version, the scatter form of ops/p2g.py.
+tiles with their particles staged through shared memory a halo plane at a
+time; each face walks its short runs itself, and the long runs of dense
+cells and piles are cut into pieces that the whole block shares) and its
+plain PyTorch version, the scatter form of ops/p2g.py.
 
 Replaces fluidsimulation_tpu/ops/pallas_p2g_super.py::
 p2g_accumulate_pallas_super. Both return, for U, V and W in turn, the pair
 (acc, amt): sum of w*vel and sum of w on the staggered grid. A CPU tensor
-takes the plain version; a CUDA tensor launches the kernel.
+takes the plain version; a CUDA tensor launches the kernel. The kernel sums
+each face's particles in an order fixed by its own window in CSR order, so
+its bits depend on that window alone; they differ from the scatter form's
+by summation order only. While a recording of utils/trace.py is open, a launch
+adds to the step's device counters p2g.visits (particle visits walked) and
+p2g.lane_steps (the lane-steps the blocks spent on them).
 """
 
 from __future__ import annotations
@@ -14,11 +21,13 @@ import torch
 
 from .. import _build
 from ..core.config import SimConfig
+from ..utils import trace
 
 KERNEL = _build.Kernel(
     "fst_p2g",
-    [_build.P] * 9 + [_build.I] * 4,
+    [_build.P] * 9 + [_build.I] * 4 + [_build.P],
 )
+COUNTERS = ("p2g.visits", "p2g.lane_steps")  # the kernel's device counters, in its order
 
 
 def face_shapes(cfg: SimConfig):
@@ -103,5 +112,6 @@ def p2g_accumulate(cfg: SimConfig, pcs, vels, start, x0: int = 0):
         amt = torch.empty(shape, dtype=torch.float32, device=dev)
         out.append((acc, amt))
         args += [acc.data_ptr(), amt.data_ptr()]
-    KERNEL.launch(dev, *args, nx, ny, nz, x0)
+    counts = trace.device_counts(COUNTERS, dev)
+    KERNEL.launch(dev, *args, nx, ny, nz, x0, None if counts is None else counts.data_ptr())
     return out

@@ -17,6 +17,13 @@ set beside a device trace of the same process: a device operation belongs
 to the innermost span whose [t0, t1] holds its launch. No file is written;
 the caller reads the Recording.
 
+A kernel can count on the device too: ``device_counts(names, device)``
+hands it, while a recording is open, the current step's int64 counters for
+those names (one small tensor a step, zero at first), and None otherwise,
+so that a launch outside a recording passes a null pointer and counts
+nothing. The recording adds them into ``counts[step]`` when its block
+closes: one synchronize, after every step it holds.
+
 ``recording(events=device)`` also brackets each span with a pair of CUDA
 events on the current stream (perf_counter stamps for a CPU device), which
 give its interval on the device's timeline once the card has caught up
@@ -69,7 +76,8 @@ def elapsed_ms(start, end) -> float:
 
 class Recording:
     """What a ``recording()`` block took: every span, in the order they
-    opened, and each step's counters ({step or None: {name: n}})."""
+    opened, and each step's counters ({step or None: {name: n}}), the
+    device counters' among them once the block has closed."""
 
     def __init__(self, events: torch.device | None):
         self.events = events
@@ -78,6 +86,8 @@ class Recording:
         self.steps = 0  # root step spans opened
         self.open: list[_Open] = []
         self.step: int | None = None  # the root step open now
+        # (step, names) -> that step's device counters for those names
+        self.device: dict[tuple[int | None, tuple[str, ...]], torch.Tensor] = {}
 
     def step_spans(self) -> list[list[Span]]:
         """Each step's spans in the order they opened, its root first."""
@@ -90,6 +100,23 @@ class Recording:
     def add(self, name: str, n: int) -> None:
         row = self.counts.setdefault(self.step, {})
         row[name] = row.get(name, 0) + n
+
+    def device_counts(self, names: tuple[str, ...], device: torch.device) -> torch.Tensor:
+        key = (self.step, names)
+        if key not in self.device:
+            self.device[key] = torch.zeros(len(names), dtype=torch.int64, device=device)
+        return self.device[key]
+
+    def resolve(self) -> None:
+        """Add the device counters into counts (one synchronize)."""
+        if not self.device:
+            return
+        values = iter(torch.cat(list(self.device.values())).tolist())
+        for step, names in self.device:
+            row = self.counts.setdefault(step, {})
+            for name in names:
+                row[name] = row.get(name, 0) + next(values)
+        self.device = {}
 
 
 class _Open:
@@ -151,6 +178,15 @@ def span(name: str):
     return _Open(_rec, name)
 
 
+def device_counts(names: tuple[str, ...], device: torch.device) -> torch.Tensor | None:
+    """The current step's device counters for ``names`` (int64, one a name,
+    in that order) while a recording is open, for a kernel to add to; None
+    with no recording open."""
+    if _rec is None:
+        return None
+    return _rec.device_counts(names, device)
+
+
 def sync(n: int = 1):
     """A span around a host wait for the card; it counts n ``sync``s, the
     waits inside it."""
@@ -164,7 +200,8 @@ def sync(n: int = 1):
 def recording(events: torch.device | None = None):
     """Record every span and counter of the block into the Recording it
     yields. ``events``: the device whose timeline each span's marks read;
-    None, no marks."""
+    None, no marks. The device counters land in ``counts`` once the block
+    has closed without an error."""
     global _rec
     if _rec is not None:
         raise RuntimeError("a recording is already open")
@@ -173,3 +210,4 @@ def recording(events: torch.device | None = None):
         yield rec
     finally:
         _rec = None
+    rec.resolve()

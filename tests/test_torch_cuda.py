@@ -172,8 +172,8 @@ def test_p2g_kernel_at_shapes(dev, shape):
 
 
 def test_p2g_kernel_crammed(dev):
-    """3,000 particles in one cell besides the rest: the halo of the tiles
-    around it is walked in chunks (2,048 particles a buffer)."""
+    """3,000 particles in one cell besides the rest: the halo plane that
+    holds it is walked in chunks, and its runs are dealt out in pieces."""
     cfg = _shape_cfg((20, 12, 24))
     pcs, vels, start = _random_particles(dev, cfg, 20 * 12 * 24, 3, cram=3000)
     assert int((start[1:] - start[:-1]).max()) >= 3000

@@ -160,6 +160,48 @@ def test_count_and_sync_tally_per_step():
     assert [(s.name, s.step) for s in rec.spans[:1]] == [("sync", None)]
 
 
+def test_device_counts_land_in_their_steps_when_the_block_closes():
+    """A kernel's device counters: None with no recording open (its launch
+    passes a null pointer); inside one, one tensor a step and set of names,
+    zero at first, whose values the recording adds into counts[step] beside
+    the sync counter once the block has closed, and not before."""
+    cpu, names = torch.device("cpu"), ("k.visits", "k.steps")
+    assert trace.device_counts(names, cpu) is None
+    with trace.recording() as rec:
+        trace.device_counts(names, cpu)[0] += 4  # outside every step
+        with trace.span("step"):
+            counts = trace.device_counts(names, cpu)
+            assert counts.dtype == torch.int64 and counts.tolist() == [0, 0]
+            counts += torch.tensor([3, 5])
+            assert trace.device_counts(names, cpu) is counts
+            with trace.sync(2):
+                pass
+        with trace.span("step"):
+            trace.device_counts(names, cpu)[1] += 7
+        assert rec.counts == {0: {"sync": 2}}
+    assert rec.counts == {None: {"k.visits": 4, "k.steps": 0},
+                          0: {"sync": 2, "k.visits": 3, "k.steps": 5},
+                          1: {"k.visits": 0, "k.steps": 7}}
+    assert trace.device_counts(names, cpu) is None
+
+
+def test_the_plain_p2g_counts_nothing():
+    """On the CPU P2G takes its plain scatter form: no kernel, no device
+    counter, even with a recording open."""
+    from fluidsimulation_tpu_torch.ops import cuda_p2g
+    from fluidsimulation_tpu_torch.ops.binning import build_csr
+
+    s = ft.init_state(CFG, "cpu")
+    csr = build_csr(CFG, s.pos)
+    pcs, vels = (s.pos * N)[csr.order], s.vel[csr.order]
+    with trace.recording() as rec:
+        with trace.span("step"):
+            got = cuda_p2g.p2g_accumulate(CFG, pcs, vels, csr.start)
+    assert rec.counts == {} and rec.device == {}
+    want = cuda_p2g.p2g_accumulate_plain(CFG, pcs, vels)
+    assert all(torch.equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w))
+
+
 def test_events_mark_each_span_on_the_device_timeline():
     """With events on a CPU device the marks are host clock stamps, and a
     child's interval lies inside its parent's."""
@@ -251,19 +293,20 @@ def test_host_syncs_are_the_sync_warnings_on_card(dev, family):
     ``sync`` count equals the warnings of set_sync_debug_mode("warn"). On
     the card the APIC P2G indexes its particles itself
     (ops/cuda_p2g_apic.py: build_csr_cells' bincount), 2 more than the
-    CPU step's count."""
+    CPU step's count. The mode watches the step alone: the recording's
+    close, which reads the FLIP P2G kernel's device counters back (one
+    synchronize, outside every step), lies outside it."""
     init, step, _, _, _, syncs = FAMILIES[family]
     syncs += 2 if family == "apic" else 0
     s = init(DEMO, dev)
     for _ in range(2):
         s = step(s, 1.0 / 120.0, DEMO)
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+    with trace.recording() as rec, warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            with trace.recording() as rec:
-                step(s, 1.0 / 120.0, DEMO)
+            step(s, 1.0 / 120.0, DEMO)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     # (The mode's first use also warns that it is a prototype.)
