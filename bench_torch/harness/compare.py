@@ -1,7 +1,7 @@
 """The comparison that decides ``correct``.
 
 The window's last step is the answer checked: the plain reference
-(harness/reference.py) steps the very state the program's last step
+(references/<name>.py) steps the very state the program's last step
 started from, and every field of the state the program returned is held
 against the reference's. That covers every stage of the step and every
 kernel it launches: the level set's pass and sweeps reach phi, P2G, the

@@ -1,6 +1,8 @@
-"""The plain reference step: the dam-break solver's FLIP and APIC steps in
-plain PyTorch, kept with the benchmark so that the program under test
-cannot change what it is held against.
+"""The plain reference step: the 3D dam-break solver's FLIP and APIC steps
+in plain PyTorch, kept with the benchmark so that the program under test
+cannot change what it is held against. A run finds a transfer's reference
+by name in references/<name>.py (harness/catalog.py); references/flip.py
+and references/apic.py step these on the configuration's scene.
 
 It follows GPFluidSim::Simulate (Simulation.cpp:513-566) stage by stage:
 
@@ -503,6 +505,3 @@ def apic_step(sc: Scene, state: dict, dt, dtype=torch.float32) -> dict:
     vel, C = g2p_apic(sc, pc, (u, v, w), m)
     out = dict(pos=pos, vel=vel, C=C, u=u, v=v, w=w, phi=blur(phi))
     return {k: t.to(torch.float32) for k, t in out.items()}
-
-
-STEPS = {"flip": (flip_step, FLIP_FIELDS), "apic": (apic_step, APIC_FIELDS)}

@@ -8,8 +8,10 @@ cell's own load, then the numbers of harness/compare.py for the program's
 last step against the float32 reference, and for the control (the
 reference in bfloat16, stepping the same state) against the float32
 reference. Each is printed at several tolerances, one JSON line a seed.
-With ``--fault <name>`` the program runs with that fault of
-harness/faults.py planted, and the control is not run. The benchmark's own
+The reference is the one the configuration's transfer names
+(references/<name>.py). With ``--fault <name>`` the program runs with that
+fault of harness/faults.py planted where faults/<name>.py of the same name
+says, and the control is not run. The benchmark's own
 runs never run the control or a fault; their tests at a small size are
 bench_torch/tests/test_control.py and test_faults.py.
 """
@@ -24,7 +26,7 @@ import sys
 import time
 
 import run
-from harness import catalog, compare, device, faults, reference
+from harness import catalog, compare, device, faults
 
 RTOLS = (1e-5, 1e-4, 1e-3)
 
@@ -50,10 +52,10 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dt = float(min(max(mix["dt"] * mix["rate"], 0.0), conf["scene"]["max_dt"]))
-    scene = reference.scene_of(conf["scene"])
+    name = conf["program"]["transfers"][mix["transfer"]]["reference"]
     for seed in args.seeds:
         t0 = time.perf_counter()
-        with (faults.planted(args.fault, mix["transfer"]) if args.fault
+        with (faults.planted(args.fault, name) if args.fault
               else contextlib.nullcontext()):
             prog = run.Program(conf, mix["transfer"], seed)
             loop = run.Loop(prog, dt, mix["check_every"], card)
@@ -66,14 +68,14 @@ def main(argv=None) -> int:
         gc.collect()
         card.empty_cache()
         t1 = time.perf_counter()
-        ref = prog.reference(scene, inp, dt)
+        ref = prog.reference(conf["scene"], inp, dt)
         card.sync()
         t_ref = time.perf_counter() - t1
         line = {"seed": seed, "fault": args.fault, "steps": steps, "failed": failed, "ref_s": t_ref,
                 "program": {str(r): compare.numbers(out, ref, prog.fields, r) for r in RTOLS}}
         del out
         if args.control and not args.fault:
-            ctl = prog.reference(scene, inp, dt, torch.bfloat16)
+            ctl = prog.reference(conf["scene"], inp, dt, torch.bfloat16)
             line["control"] = {str(r): compare.numbers(ctl, ref, prog.fields, r) for r in RTOLS}
             del ctl
         del inp, ref

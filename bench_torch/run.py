@@ -16,8 +16,10 @@ simulated time. The window then runs the demo's 3D loop without frames for
 ``--seconds`` seconds: the step, a synchronize, and every 10th step the
 demo's state check (an anomaly resets the state, as the demo does, and the
 steps since the last check count as failed). After the window the plain
-reference (harness/reference.py) steps the state the program's last step
-started from, and the comparison (harness/compare.py) decides ``correct``.
+reference that the configuration's transfer names (references/<name>.py)
+steps the state the program's last step started from, on the
+configuration's scene, and the comparison (harness/compare.py) decides
+``correct``.
 
 With ``--trace 0`` the result carries the cell's end-to-end metrics:
 setup_s, step_ms (the window's wall time over its steps, checks
@@ -31,7 +33,9 @@ and under "trace" the steps it kept and the stretches it dropped.
 
 The last line of standard output is the result; the numbers compared, each
 beside its limit, are the last lines of standard error. Without a card, or
-with fewer cards than the cell asks for, it prints no result and exits 3.
+with fewer cards than the cell asks for, it prints no result and exits 3;
+if the process holds JAX or the JAX package once the window has closed, it
+names them on standard error, prints no result and exits 4.
 """
 
 from __future__ import annotations
@@ -53,10 +57,12 @@ import json  # noqa: E402
 import statistics  # noqa: E402
 import sys  # noqa: E402
 
-from harness import catalog, compare, device, reference, stats, tracing  # noqa: E402
+from harness import catalog, compare, device, stats, tracing  # noqa: E402
 
 GIB = float(2**30)
 DRIFT_BLOCKS = 10  # the window's step times are printed as this many block medians
+# Top-level modules no run may hold: JAX and the JAX package the port was made from.
+BARRED = frozenset({"jax", "jaxlib", "flax", "fluidsimulation_tpu"})
 
 
 def parse_args(argv=None):
@@ -77,19 +83,26 @@ def say(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
+def barred_modules() -> list[str]:
+    """The top-level names of sys.modules that BARRED holds, each compared
+    whole (the port's name begins with the JAX package's)."""
+    return sorted({name.partition(".")[0] for name in list(sys.modules)} & BARRED)
+
+
 class Program:
     """The system under test, as the configuration file names it."""
 
     def __init__(self, conf: dict, transfer: str, seed: int):
         prog = conf["program"]
         entries = prog["transfers"][transfer]
+        ref = catalog.reference(entries["reference"])
+        self.reference, self.fields = ref.step, ref.FIELDS
         self.package = prog["package"]
         self.cfg = resolve(prog["config"])(**conf["scene"], seed=seed)
         self.init = resolve(entries["init"])
         self.step = resolve(entries["step"])
         self.check = resolve(prog["check"])
         self.sites = catalog.sites(entries["sites"])
-        self.reference, self.fields = reference.STEPS[entries["reference"]]
 
 
 def caches_in_checkout() -> None:
@@ -161,7 +174,7 @@ def main(argv=None, dev=None, conf=None) -> int:
         loop.prev = loop.state = None
         gc.collect()
         card.empty_cache()
-        ref = prog.reference(reference.scene_of(conf["scene"]), inp, dt)
+        ref = prog.reference(conf["scene"], inp, dt)
         nums = compare.numbers(out, ref, prog.fields)
         del inp, out, ref
         checks = compare.checks(nums)
@@ -218,6 +231,10 @@ def main(argv=None, dev=None, conf=None) -> int:
         say(f"check {name}: {c['value']!r} limit {c['limit']!r}")
     if not checks:
         say("check: no step to compare (the state was reset on the window's last step)")
+    barred = barred_modules()
+    if barred:
+        say(f"run.py: the process holds {', '.join(barred)}; no result")
+        return 4
     print(json.dumps(result), flush=True)
     return 0
 

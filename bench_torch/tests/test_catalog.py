@@ -1,4 +1,7 @@
 import json
+import os
+import subprocess
+import sys
 
 import pytest
 
@@ -13,6 +16,10 @@ def test_every_cell_of_the_benchmark_finds_its_files():
         assert conf["name"] == cell["config"] and mix["name"] == cell["traffic"]
         entries = conf["program"]["transfers"][mix["transfer"]]
         assert catalog.sites(entries["sites"])
+        ref = catalog.reference(entries["reference"])
+        assert callable(ref.step) and ref.FIELDS
+        table = catalog.faults(entries["reference"])
+        assert len(table.SITES) == 4 and callable(table.half_batch)
         for m in catalog.per_layer(bench, cell["name"]):
             assert callable(catalog.metric_reader(m["name"]).read)
 
@@ -48,10 +55,20 @@ def test_a_cell_added_as_files_is_found(tmp_path):
     (tmp_path / "sites" / "two.json").write_text(json.dumps([["solver.x", "f", "f"]]))
     (tmp_path / "metrics" / "x.count.py").write_text(
         "def capture(captured):\n    return {'n': 1}\n\ndef read(trace):\n    return 7.0\n")
+    (tmp_path / "references").mkdir()
+    (tmp_path / "faults").mkdir()
+    (tmp_path / "references" / "line1d.py").write_text(
+        "import dataclasses\n\n@dataclasses.dataclass\nclass Line:\n    n: int\n\n"
+        "FIELDS = ('x',)\n\ndef step(scene, state, dt, dtype=None):\n    return state\n")
+    (tmp_path / "faults" / "line1d.py").write_text(
+        "SITES = ('m', 's', 'p', 'u')\n\ndef half_batch(orig):\n    return orig\n")
     assert catalog.config("tiny", tmp_path)["scene"]["nx"] == 8
     assert catalog.traffic("burst", tmp_path)["rate"] == 1.0
     assert catalog.sites("two", tmp_path) == [("solver.x", "f", "f")]
     reader = catalog.metric_reader("x.count", tmp_path)
+    line1d = catalog.reference("line1d", tmp_path)
+    assert line1d.FIELDS == ("x",) and line1d.Line(3).n == 3
+    assert catalog.faults("line1d", tmp_path).SITES == ("m", "s", "p", "u")
     assert reader.read(None) == 7.0 and reader.capture({}) == {"n": 1}
     bench = {"workloads": [{"name": "tiny.burst", "config": "tiny", "traffic": "burst"}],
              "end_to_end": [{"name": "step_ms"}, {"name": "p", "workloads": ["other"]}],
@@ -65,5 +82,23 @@ def test_a_cell_added_as_files_is_found(tmp_path):
         catalog.config("absent", tmp_path)
     with pytest.raises(catalog.CatalogError):
         catalog.metric_reader("absent", tmp_path)
+    for find in (catalog.reference, catalog.faults):
+        with pytest.raises(catalog.CatalogError, match="absent.py"):
+            find("absent", tmp_path)
     with pytest.raises(catalog.CatalogError):
         catalog.workload(bench, "absent")
+
+
+def test_the_references_import_nothing_of_the_program():
+    """Every references/<name>.py, loaded as a run loads it, leaves the
+    program's package and JAX out of a fresh process."""
+    names = sorted(p.stem for p in (catalog.BENCH / "references").glob("*.py"))
+    code = ("import sys; sys.path.insert(0, 'bench_torch'); from harness import catalog\n"
+            f"for n in {names!r}: catalog.reference(n)\n"
+            "print(sorted({m.partition('.')[0] for m in sys.modules} & "
+            "{'fluidsimulation_tpu_torch', 'fluidsimulation_tpu', 'jax'}))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=catalog.ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert names and proc.stdout.strip() == "[]"

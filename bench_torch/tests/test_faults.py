@@ -1,5 +1,6 @@
 """A run driven on the CPU at a small scene, past the look for a card, with
-the timed path broken underneath (harness/faults.py): each fault a one-card
+the timed path broken underneath (harness/faults.py, planted where
+faults/<name>.py of the transfer's reference says): each fault a one-card
 cell of this system can have must turn ``correct`` false, and the sound
 path keeps it true."""
 
@@ -38,6 +39,7 @@ def test_the_sound_step_is_correct(transfer):
 @pytest.mark.parametrize("fault", faults.FAULTS)
 @pytest.mark.parametrize("transfer", ["flip", "apic"])
 def test_each_fault_turns_correct_false(transfer, fault):
-    with faults.planted(fault, transfer):
+    name = catalog.config("demo64")["program"]["transfers"][transfer]["reference"]
+    with faults.planted(fault, name):
         result = drive(transfer)
     assert result["correct"] is False, result["checks"]
